@@ -1,0 +1,1 @@
+"""eval layer of the PyTorch/CUDA port (mirrors noise_gnn_tpu/eval)."""

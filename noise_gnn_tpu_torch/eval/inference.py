@@ -1,0 +1,102 @@
+"""Full-graph layer-wise inference over a pre-packed CSR SpMM.
+
+Port of ``noise_gnn_tpu/eval/inference.py``: every layer aggregates over ALL
+edges on the device. Mean and sum aggregation run the CSR SpMM
+(``ops/spmm.py``: the CUDA kernel on a card, the plain version on the CPU);
+``aggr: max`` runs ``scatter_reduce``. Only the conv stack runs at eval (no
+dropout), as in the reference's ``inference`` methods.
+
+``pair`` evaluates both co-teaching nets in one pass: their activations are
+concatenated to [N, 2H] so one SpMM per layer serves both. ``x_agg`` (the
+first layer's aggregate of the run-constant raw features, from the
+exact-leaf table) makes layer 1 matmul-only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.nets import NetSpec
+from ..ops.scatter import gather_scatter_max
+from ..ops.spmm import Spmm
+
+
+class FullGraphInference:
+    """Callable (params, x) -> f32 logits [N, C] for a fixed graph."""
+
+    def __init__(self, spec: NetSpec, csr, x_agg: torch.Tensor | None = None):
+        self.spec = spec
+        self.num_nodes = int(csr.num_nodes)
+        self._csr = csr
+        self._x_agg = x_agg
+        self._spmm = Spmm.from_csr(csr)
+        self._edge_index = None  # built on first use by aggr='max'
+
+    def _max_agg(self, x: torch.Tensor) -> torch.Tensor:
+        if self._edge_index is None:
+            self._edge_index = self._csr.edge_index()
+        return gather_scatter_max(x, self._edge_index, self.num_nodes)
+
+    def _agg(self, x: torch.Tensor, mean: bool) -> torch.Tensor:
+        if mean and self.spec.aggr == "max":
+            return self._max_agg(x)
+        # fp32 accumulation, output in the activation dtype
+        return self._spmm(x.contiguous(), mean=mean, out_dtype=x.dtype)
+
+    def _conv(self, p: dict, x: torch.Tensor, agg: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        if self.spec.module == "gcn":
+            return (agg + x) @ p["w"].to(dt) + p["b"].to(dt)
+        return agg @ p["w_neigh"].to(dt) + x @ p["w_root"].to(dt) + p["b"].to(dt)
+
+    @torch.no_grad()
+    def __call__(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        spec = self.spec
+        is_gcn = spec.module == "gcn"
+        x = x.to(spec.dtype)
+        for i, p in enumerate(params["convs"]):
+            if i == 0 and self._x_agg is not None:
+                agg = self._x_agg.to(x.dtype)
+            else:
+                agg = self._agg(x, mean=not is_gcn)
+            x = self._conv(p, x, agg)
+            if i != spec.num_layers - 1:
+                x = torch.relu(x)
+        return x.float()
+
+    @torch.no_grad()
+    def pair(self, params1: dict, params2: dict, x: torch.Tensor):
+        """Both nets in one pass -> (logits1, logits2): each layer's SpMM
+        runs once over the [N, 2H] concatenation of their activations."""
+        spec = self.spec
+        is_gcn = spec.module == "gcn"
+        x1 = x2 = x.to(spec.dtype)
+        for i, (l1, l2) in enumerate(zip(params1["convs"], params2["convs"])):
+            f = x1.shape[-1]
+            if i == 0 and self._x_agg is not None:
+                agg1 = agg2 = self._x_agg.to(x1.dtype)
+            else:
+                agg = self._agg(torch.cat([x1, x2], dim=1), mean=not is_gcn)
+                agg1, agg2 = agg[:, :f], agg[:, f:]
+            x1, x2 = self._conv(l1, x1, agg1), self._conv(l2, x2, agg2)
+            if i != spec.num_layers - 1:
+                x1, x2 = torch.relu(x1), torch.relu(x2)
+        return x1.float(), x2.float()
+
+
+def split_accuracy_fn(split_idx: dict, y: torch.Tensor, num_nodes: int):
+    """Device-side split accuracy (JAX package pipelines.py:403-427): masked
+    correct-counts for every split in one reduction, one small fetch per
+    evaluation. Returns ``accs(logits) -> {split: accuracy}``."""
+    parts = list(split_idx)
+    masks = torch.zeros((len(parts), num_nodes), dtype=torch.bool, device=y.device)
+    for i, p in enumerate(parts):
+        masks[i, torch.as_tensor(split_idx[p], dtype=torch.long, device=y.device)] = True
+    sizes = [max(int(split_idx[p].shape[0]), 1) for p in parts]
+
+    def accs(logits: torch.Tensor) -> dict:
+        ok = logits.argmax(dim=-1) == y
+        vals = (ok[None, :] & masks).sum(dim=1).cpu().tolist()
+        return {p: float(v) / c for p, v, c in zip(parts, vals, sizes)}
+
+    return accs

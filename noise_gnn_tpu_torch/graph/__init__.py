@@ -1,0 +1,1 @@
+"""graph layer of the PyTorch/CUDA port (mirrors noise_gnn_tpu/graph)."""

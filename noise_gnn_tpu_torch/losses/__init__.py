@@ -1,0 +1,1 @@
+"""losses layer of the PyTorch/CUDA port (mirrors noise_gnn_tpu/losses)."""

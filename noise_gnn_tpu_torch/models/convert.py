@@ -1,0 +1,35 @@
+"""Weights carried between the JAX package and the port.
+
+The JAX params pytree, as numpy (``jax.tree.map(np.asarray, params)``), is
+``{"convs": [{"w_neigh", "w_root", "b"} | {"w", "b"}, ...]}`` with weight
+matrices ``[in, out]`` (noise_gnn_tpu/models/layers.py:66-72). The port keeps
+the same structure and the same ``[in, out]`` layout at its public
+functions (``x @ w``), so the mapping is a copy into f32 tensors; nothing is
+transposed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def params_from_jax(params_np: dict, device=None) -> dict:
+    """JAX-layout numpy params -> the port's params (f32 leaf tensors)."""
+    return {
+        "convs": [
+            {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
+             for k, v in conv.items()}
+            for conv in params_np["convs"]
+        ]
+    }
+
+
+def params_to_jax(params: dict) -> dict:
+    """The inverse: the port's params -> JAX-layout numpy arrays."""
+    return {
+        "convs": [
+            {k: v.detach().cpu().numpy() for k, v in conv.items()}
+            for conv in params["convs"]
+        ]
+    }

@@ -1,0 +1,162 @@
+"""SAGE and GCN stacks: edge-list forward (``apply``) and dense k-hop tree
+forward (``apply_tree``), with params as plain dicts of f32 tensors.
+
+Port of ``noise_gnn_tpu/models/nets.py`` for the modules this slice runs,
+``sage`` and ``gcn``; a NetSpec of another module (sageH, sageFC, sagePL,
+gcn_head, gat) or with ``use_bn`` raises until it is ported. Params have
+the JAX pytree's structure,
+``{"convs": [{"w_neigh", "w_root", "b"} | {"w", "b"}, ...]}`` with weights
+``[in, out]`` (``models/convert.py`` maps one to the other). With a bf16
+``compute_dtype`` activations run in bf16 and the logits come back f32.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .layers import (
+    dropout,
+    gcn_conv,
+    gcn_conv_init,
+    gcn_conv_pre,
+    gcn_conv_tree,
+    sage_conv,
+    sage_conv_init,
+    sage_conv_pre,
+    sage_conv_tree,
+)
+
+MODULES = ("sage", "gcn")
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class NetSpec:
+    """Static architecture description (reference src/models/model.py:14-35)."""
+
+    module: str = "sage"
+    in_size: int = 100
+    hidden_size: int = 128
+    out_size: int = 47
+    num_layers: int = 2
+    dropout: float = 0.5
+    use_bn: bool = False
+    aggr: str = "mean"  # SAGE neighbor aggregation: 'mean' | 'max'
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.module not in MODULES:
+            raise NotImplementedError(
+                f"module {self.module!r} is not yet ported (ported: {MODULES})")
+        if self.use_bn:
+            raise NotImplementedError("use_bn is not yet ported")
+
+    def layer_sizes(self) -> list[tuple[int, int]]:
+        sizes = []
+        for i in range(self.num_layers):
+            fin = self.in_size if i == 0 else self.hidden_size
+            fout = self.out_size if i == self.num_layers - 1 else self.hidden_size
+            sizes.append((fin, fout))
+        return sizes
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+
+def make_network(config: dict, in_size: int, out_size: int) -> NetSpec:
+    """Build a NetSpec from a reference-style config dict."""
+    return NetSpec(
+        module=config.get("module", "sage"),
+        in_size=in_size,
+        hidden_size=int(config.get("hidden_size", 128)),
+        out_size=out_size,
+        num_layers=int(config.get("num_layers", 2)),
+        dropout=float(config.get("dropout", 0.5)),
+        use_bn=bool(config.get("use_bn", False)),
+        compute_dtype=str(config.get("compute_dtype", "float32")),
+        aggr=str(config.get("aggr", "mean")),
+    )
+
+
+def init_params(gen: torch.Generator, spec: NetSpec, device=None) -> dict:
+    """Glorot weights, zero biases, drawn from ``gen`` on ``device``."""
+    init = gcn_conv_init if spec.module == "gcn" else sage_conv_init
+    return {"convs": [init(gen, fin, fout, device) for fin, fout in spec.layer_sizes()]}
+
+
+def parameters(params: dict) -> list[torch.Tensor]:
+    """The leaf tensors of a params dict, in a fixed order (for optimizers)."""
+    return [p[k] for p in params["convs"] for k in sorted(p)]
+
+
+def _conv(spec, p, x, edge_index, num_nodes, edge_mask):
+    if spec.module == "gcn":
+        return gcn_conv(p, x, edge_index, num_nodes, edge_mask)
+    return sage_conv(p, x, edge_index, num_nodes, edge_mask, aggr=spec.aggr)
+
+
+def _conv_tree(spec, p, x_self, x_neigh, mask):
+    if spec.module == "gcn":
+        return gcn_conv_tree(p, x_self, x_neigh, mask)
+    return sage_conv_tree(p, x_self, x_neigh, mask, aggr=spec.aggr)
+
+
+def _conv_pre(spec, p, x_self, agg):
+    if spec.module == "gcn":
+        return gcn_conv_pre(p, x_self, agg)
+    return sage_conv_pre(p, x_self, agg)
+
+
+def apply(spec: NetSpec, params: dict, x: torch.Tensor, edge_index: torch.Tensor, *,
+          num_nodes: int | None = None, edge_mask=None, train: bool = False,
+          gen: torch.Generator | None = None) -> dict:
+    """Edge-list forward: conv -> (relu, dropout) between layers.
+    Returns {"logits": f32 [N, C]}."""
+    n = num_nodes if num_nodes is not None else x.shape[0]
+    x = x.to(spec.dtype)
+    for i, p in enumerate(params["convs"]):
+        x = _conv(spec, p, x, edge_index, n, edge_mask)
+        if i != spec.num_layers - 1:
+            x = torch.relu(x)
+            x = dropout(gen, x, spec.dropout, train)
+    return {"logits": x.float()}
+
+
+def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
+               masks: list[torch.Tensor], fanouts: tuple[int, ...], *,
+               train: bool = False, gen: torch.Generator | None = None,
+               leaf_agg: torch.Tensor | None = None) -> dict:
+    """Dense k-hop tree forward; rows of the result are the seeds.
+
+    xs[d]: [N_d, F] features of depth-d tree nodes (N_d = B *
+    prod(fanouts[:d])), masks[d]: [N_d] validity. Layer i maps depths
+    0..L-1-i to depths 0..L-1-i. With ``leaf_agg`` [N_{L-1}, F] (exact-leaf
+    mode) the tree is one hop shallower and the first layer's deepest conv
+    uses the precomputed neighbor aggregate. Dropout draws one mask per
+    depth array from ``gen``. Returns {"logits": f32 [B, C]}."""
+    L = spec.num_layers
+    exact = leaf_agg is not None
+    want = L if exact else L + 1
+    if len(xs) != want:
+        raise ValueError(f"need {want} depth arrays, got {len(xs)}")
+    xs = [x.to(spec.dtype) for x in xs]
+    for i, p in enumerate(params["convs"]):
+        new_xs = []
+        for d in range(L - i):
+            if i == 0 and d == L - 1 and exact:
+                new_xs.append(_conv_pre(spec, p, xs[d], leaf_agg.to(xs[d].dtype)))
+                continue
+            n_d = xs[d].shape[0]
+            f = fanouts[d]
+            x_neigh = xs[d + 1].reshape(n_d, f, xs[d + 1].shape[-1])
+            m_neigh = masks[d + 1].reshape(n_d, f)
+            new_xs.append(_conv_tree(spec, p, xs[d], x_neigh, m_neigh))
+        xs = new_xs
+        if i != L - 1:
+            xs = [torch.relu(x) for x in xs]
+            xs = [dropout(gen, x, spec.dropout, train) for x in xs]
+    return {"logits": xs[0].float()}

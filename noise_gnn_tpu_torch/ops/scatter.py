@@ -1,0 +1,89 @@
+"""Segment reductions and edge-list message passing as plain torch ops.
+
+Port of ``noise_gnn_tpu/ops/scatter.py``. ``edge_index`` is [2, E] (row 0 =
+source, row 1 = destination); masked edges are routed to a dead row
+``num_nodes`` that is sliced off. Accumulation is fp32 regardless of input
+dtype. The JAX module's ``fast_take`` (a TPU gather workaround) is plain
+indexing here. Large graphs (E * F above ~128 M elements) accumulate over
+edge chunks so the [E, F] message matrix never materializes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_CHUNK_THRESHOLD_ELEMS = 1 << 27
+_EDGE_CHUNK = 1 << 21
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+
+
+def _routed(edge_index, edge_mask, num_nodes):
+    src, dst = edge_index[0].long(), edge_index[1].long()
+    if edge_mask is not None:
+        dst = torch.where(edge_mask, dst, torch.full_like(dst, num_nodes))
+    return src, dst
+
+
+def segment_count(segment_ids: torch.Tensor, num_segments: int,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Number of (valid) entries per segment, f32 [num_segments]."""
+    ones = torch.ones(segment_ids.shape, dtype=torch.float32, device=segment_ids.device)
+    if mask is not None:
+        ones = torch.where(mask, ones, 0.0)
+    out = torch.zeros(num_segments, dtype=torch.float32, device=segment_ids.device)
+    return out.index_add_(0, segment_ids.long(), ones)
+
+
+def _scatter_sum_f32(x, src, dst, num_nodes):
+    """[num_nodes + 1, F] fp32 sums (last row = dead segment), chunked over
+    edges when the message matrix would be large."""
+    acc = torch.zeros((num_nodes + 1, x.shape[1]), dtype=_acc_dtype(x.dtype),
+                      device=x.device)
+    e = src.shape[0]
+    chunk = _EDGE_CHUNK if e * x.shape[1] > _CHUNK_THRESHOLD_ELEMS else max(e, 1)
+    for lo in range(0, e, chunk):
+        acc.index_add_(0, dst[lo:lo + chunk], x[src[lo:lo + chunk]].to(acc.dtype))
+    return acc
+
+
+def gather_scatter_sum(x, edge_index, num_nodes: int, edge_mask=None) -> torch.Tensor:
+    """out[i] = sum_{(j -> i) in E} x[j]."""
+    src, dst = _routed(edge_index, edge_mask, num_nodes)
+    return _scatter_sum_f32(x, src, dst, num_nodes)[:num_nodes].to(x.dtype)
+
+
+def gather_scatter_mean(x, edge_index, num_nodes: int, edge_mask=None) -> torch.Tensor:
+    """out[i] = mean_{(j -> i) in E} x[j]; 0 for isolated nodes."""
+    src, dst = _routed(edge_index, edge_mask, num_nodes)
+    total = _scatter_sum_f32(x, src, dst, num_nodes)[:num_nodes]
+    if total.dtype != x.dtype:
+        # the JAX path rounds the sum to the input dtype before dividing
+        total = total.to(x.dtype)
+    count = segment_count(dst, num_nodes + 1)[:num_nodes]
+    return (total.float() / count.clamp(min=1.0)[:, None]).to(x.dtype)
+
+
+def gather_scatter_max(x, edge_index, num_nodes: int, edge_mask=None) -> torch.Tensor:
+    """out[i] = max_{(j -> i) in E} x[j]; 0 for isolated nodes (PyG
+    MaxAggregation semantics behind SAGEConv(aggr='max'))."""
+    src, dst = _routed(edge_index, edge_mask, num_nodes)
+    acc = torch.full((num_nodes + 1, x.shape[1]), float("-inf"), dtype=x.dtype,
+                     device=x.device)
+    e = src.shape[0]
+    chunk = _EDGE_CHUNK if e * x.shape[1] > _CHUNK_THRESHOLD_ELEMS else max(e, 1)
+    for lo in range(0, e, chunk):
+        d = dst[lo:lo + chunk][:, None].expand(-1, x.shape[1])
+        acc.scatter_reduce_(0, d, x[src[lo:lo + chunk]], reduce="amax")
+    out = acc[:num_nodes]
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
+def degree(edge_index, num_nodes: int, edge_mask=None, axis: int = 1) -> torch.Tensor:
+    """In-degree (axis=1, default) or out-degree (axis=0) per node."""
+    ids = edge_index[axis].long()
+    if edge_mask is not None:
+        ids = torch.where(edge_mask, ids, torch.full_like(ids, num_nodes))
+    return segment_count(ids, num_nodes + 1)[:num_nodes]

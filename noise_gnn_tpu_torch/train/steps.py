@@ -1,0 +1,161 @@
+"""Whole-epoch training loops for co-teaching and the baseline.
+
+Port of the main-path parts of ``noise_gnn_tpu/train/steps.py``:
+``GraphData``, ``_sample_tree``, ``TrainState``/``init_state``,
+``ct_epoch_fn`` and ``make_baseline_epoch``. Where JAX scans a jitted step
+over the epoch's seed batches, the port runs a Python loop of eager steps:
+sample the tree on the device, gather its features, forward, loss,
+backward, optimizer step. Per-step metrics are added into one device
+tensor, so an epoch syncs with the host once, when the caller reads them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..losses.coteaching import backward_correction, codi_loss, cross_entropy, ct_loss
+from ..models import nets
+from ..ops.sampler import sample_khop_tree
+
+
+@dataclass
+class GraphData:
+    """Device-resident training data."""
+
+    x: torch.Tensor  # [N, F] features (compute dtype)
+    y: torch.Tensor  # [N] true labels, int64
+    yhn: torch.Tensor  # [N] noisy labels, int64
+    clean: torch.Tensor  # [N] bool, True = label clean (noise_or_not)
+    csr: object  # graph.containers.CSRGraph, reversed CSR for in-neighbors
+    # [N, 2F] fused exact-leaf table concat([x, M], 1) (ops/leaf_agg.py)
+    # when `exact_leaf` is on; None otherwise
+    leaf_agg: torch.Tensor | None = None
+
+
+def _sample_tree(gen, data: GraphData, seeds, mask, fanouts, exact_leaf: bool):
+    """Sample the (possibly one-hop-shallower) tree and fetch its features.
+
+    Returns (tb, xs, leaf_agg_rows). With ``exact_leaf`` the deepest hop is
+    not sampled: the deepest depth's own features and exact neighbor
+    aggregate come from one gather into the fused [N, 2F] table."""
+    fan_s = fanouts[:-1] if exact_leaf else fanouts
+    tb = sample_khop_tree(gen, data.csr, seeds, fan_s, mask)
+    if not exact_leaf:
+        return tb, tb.gather_features(data.x), None
+    f = data.x.shape[-1]
+    xs = [data.x[ids] for ids in tb.n_ids[:-1]]
+    fused = data.leaf_agg[tb.n_ids[-1]]
+    xs.append(fused[:, :f])
+    la = torch.where(tb.masks[-1][:, None], fused[:, f:], torch.zeros_like(fused[:, f:]))
+    return tb, xs, la
+
+
+class TrainState(NamedTuple):
+    params: dict
+    opt: torch.optim.Optimizer
+
+
+def init_state(gen: torch.Generator, spec: nets.NetSpec,
+               make_optimizer: Callable, device=None) -> TrainState:
+    """Fresh Glorot params and their optimizer."""
+    params = nets.init_params(gen, spec, device)
+    return state_from_params(params, make_optimizer)
+
+
+def state_from_params(params: dict, make_optimizer: Callable) -> TrainState:
+    leaves = nets.parameters(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    return TrainState(params, make_optimizer(leaves))
+
+
+def _acc_count(logits, y_true, mask) -> torch.Tensor:
+    return ((logits.argmax(dim=-1) == y_true) & mask).sum()
+
+
+def _step(states, loss) -> None:
+    for s in states:
+        s.opt.zero_grad(set_to_none=True)
+    loss.backward()
+    for s in states:
+        s.opt.step()
+
+
+CT_METRICS = ("loss_1", "loss_2", "pure_ratio_1", "pure_ratio_2", "correct_1",
+              "correct_2", "agree_1", "agree_2", "noisyfit_1", "noisyfit_2",
+              "corrupt_n")
+BASELINE_METRICS = ("loss", "correct", "agree", "noisyfit", "corrupt_n")
+
+
+def ct_epoch(spec: nets.NetSpec, s1: TrainState, s2: TrainState, data: GraphData,
+             seeds: torch.Tensor, masks: torch.Tensor, gen: torch.Generator,
+             forget_rate: float, fanouts: tuple[int, ...], algo: str = "coteaching",
+             co_lambda: float = 0.1, exact_leaf: bool = False) -> dict:
+    """One co-teaching epoch over seed batches ``seeds``/``masks`` [nsteps, B]
+    (reference hot loop src/pipeline.py:110-133). Updates both states in
+    place; returns the per-step metrics SUMMED over the epoch (device
+    scalars, the caller divides)."""
+    fr = torch.tensor(forget_rate, dtype=torch.float32, device=seeds.device)
+    tot = torch.zeros(len(CT_METRICS), dtype=torch.float32, device=seeds.device)
+    for b_seeds, b_mask in zip(seeds, masks):
+        tb, xs, la = _sample_tree(gen, data, b_seeds, b_mask, fanouts, exact_leaf)
+        yb = data.yhn[b_seeds]
+        yt = data.y[b_seeds]
+        cb = data.clean[b_seeds]
+        o1 = nets.apply_tree(spec, s1.params, xs, list(tb.masks), tb.fanouts,
+                             train=True, gen=gen, leaf_agg=la)["logits"]
+        o2 = nets.apply_tree(spec, s2.params, xs, list(tb.masks), tb.fanouts,
+                             train=True, gen=gen, leaf_agg=la)["logits"]
+        if algo == "codi":
+            out = codi_loss(o1, o2, yb, fr, cb, co_lambda, b_mask)
+        else:
+            out = ct_loss(o1, o2, yb, fr, cb, b_mask)
+        _step((s1, s2), out.loss_1 + out.loss_2)
+        # memorization probes: fit to the NOISY targets overall (agree_*)
+        # and on the corrupted samples (noisyfit_*). Counts; host divides.
+        o1, o2 = o1.detach(), o2.detach()
+        corrupt = ~cb & b_mask
+        tot += torch.stack([
+            out.loss_1.detach(), out.loss_2.detach(),
+            out.pure_ratio_1, out.pure_ratio_2,
+            _acc_count(o1, yt, b_mask).float(), _acc_count(o2, yt, b_mask).float(),
+            _acc_count(o1, yb, b_mask).float(), _acc_count(o2, yb, b_mask).float(),
+            _acc_count(o1, yb, corrupt).float(), _acc_count(o2, yb, corrupt).float(),
+            corrupt.sum().float(),
+        ])
+    return dict(zip(CT_METRICS, tot))
+
+
+def baseline_epoch(spec: nets.NetSpec, s: TrainState, data: GraphData,
+                   seeds: torch.Tensor, masks: torch.Tensor, gen: torch.Generator,
+                   noise_mat: torch.Tensor, fanouts: tuple[int, ...],
+                   compare_loss: str = "normal", exact_leaf: bool = False) -> dict:
+    """One plain-CE ('normal') or backward-correction ('back') epoch
+    (reference train(), src/pipeline.py:144-173); metrics summed."""
+    tot = torch.zeros(len(BASELINE_METRICS), dtype=torch.float32, device=seeds.device)
+    for b_seeds, b_mask in zip(seeds, masks):
+        tb, xs, la = _sample_tree(gen, data, b_seeds, b_mask, fanouts, exact_leaf)
+        yb = data.yhn[b_seeds]
+        yt = data.y[b_seeds]
+        cb = data.clean[b_seeds]
+        o = nets.apply_tree(spec, s.params, xs, list(tb.masks), tb.fanouts,
+                            train=True, gen=gen, leaf_agg=la)["logits"]
+        if compare_loss == "back":
+            loss = backward_correction(o, yb, noise_mat, b_mask)
+        else:
+            w = b_mask.float()
+            loss = (cross_entropy(o, yb) * w).sum() / w.sum().clamp(min=1.0)
+        _step((s,), loss)
+        o = o.detach()
+        corrupt = ~cb & b_mask
+        tot += torch.stack([
+            loss.detach(),
+            _acc_count(o, yt, b_mask).float(),
+            _acc_count(o, yb, b_mask).float(),
+            _acc_count(o, yb, corrupt).float(),
+            corrupt.sum().float(),
+        ])
+    return dict(zip(BASELINE_METRICS, tot))
