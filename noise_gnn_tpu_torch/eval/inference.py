@@ -4,7 +4,8 @@ Port of ``noise_gnn_tpu/eval/inference.py``: every layer aggregates over ALL
 edges on the device. Mean and sum aggregation run the CSR SpMM
 (``ops/spmm.py``: the CUDA kernel on a card, the plain version on the CPU);
 ``aggr: max`` runs ``scatter_reduce``. Only the conv stack runs at eval (no
-dropout), as in the reference's ``inference`` methods.
+dropout, and no sagePL input noise: a sagePL net evaluates as its SAGE
+stack), as in the reference's ``inference`` methods.
 
 ``pair`` evaluates both co-teaching nets in one pass: their activations are
 concatenated to [N, 2H] so one SpMM per layer serves both. ``x_agg`` (the

@@ -3,16 +3,17 @@
 Dispatches as the JAX package's ``main.py:30-59`` does, for the algorithms
 this port runs: ``coteaching`` and ``codi`` train ``PipelineCO`` on the OGB
 datasets and ``PipelineS`` on the small graphs; ``baseline`` forces
-``train_type: baseline`` on the same pipelines. Every other ``algo_type``
-(and the ``_test2``/``_test3`` variants) raises "not yet ported". Runs on
-the CUDA card unless the config says ``device: 'cpu'``.
+``train_type: baseline`` on the same pipelines; ``ctp`` trains
+``PipelineCTP``. Every other ``algo_type`` (and the ``_test2``/``_test3``
+variants) raises "not yet ported". Runs on the CUDA card unless the config
+says ``device: 'cpu'``.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from .train.pipelines import PipelineCO, PipelineS, not_yet_ported
+from .train.pipelines import PipelineCO, PipelineCTP, PipelineS, not_yet_ported
 from .utils.config import load_config
 
 OGB = ("ogbn-arxiv", "ogbn-products")
@@ -27,6 +28,8 @@ def main(config: dict):
     elif algo == "baseline":
         config["train_type"] = "baseline"
         cls = PipelineCO if config["dataset_name"] in OGB else PipelineS
+    elif algo == "ctp":
+        cls = PipelineCTP
     else:
         raise not_yet_ported(f"algo_type {algo!r}")
     return cls(config).loop()

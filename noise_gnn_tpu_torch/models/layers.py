@@ -23,6 +23,7 @@ import math
 import torch
 
 from ..ops.scatter import gather_scatter_max, gather_scatter_mean, gather_scatter_sum
+from ..ops.tree_agg import TreeTopo, tree_gather_scatter
 
 
 def glorot(gen: torch.Generator, shape: tuple[int, ...], device=None) -> torch.Tensor:
@@ -40,6 +41,10 @@ def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _neighbor_agg(x, edge_index, num_nodes, edge_mask, aggr):
+    """[2, E] edge list -> gather + scatter; TreeTopo (flat tree subgraph) ->
+    the scatter-free structured aggregation (ops/tree_agg.py)."""
+    if isinstance(edge_index, TreeTopo):
+        return tree_gather_scatter(x, edge_index, aggr=aggr)
     if aggr == "max":
         return gather_scatter_max(x, edge_index, num_nodes, edge_mask)
     if aggr == "sum":
@@ -68,7 +73,8 @@ def sage_conv_pre(params: dict, x_self: torch.Tensor, agg: torch.Tensor) -> torc
 
 def sage_conv(params: dict, x: torch.Tensor, edge_index: torch.Tensor,
               num_nodes: int | None = None, edge_mask=None, aggr: str = "mean"):
-    """Edge-list SAGEConv; edge_index [2, E], messages src -> dst."""
+    """Edge-list SAGEConv; edge_index [2, E] (messages src -> dst) or a
+    TreeTopo."""
     n = num_nodes if num_nodes is not None else x.shape[0]
     agg = _neighbor_agg(x, edge_index, n, edge_mask, aggr)
     return sage_conv_pre(params, x[:n], agg)

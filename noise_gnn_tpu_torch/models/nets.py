@@ -1,13 +1,20 @@
-"""SAGE and GCN stacks: edge-list forward (``apply``) and dense k-hop tree
-forward (``apply_tree``), with params as plain dicts of f32 tensors.
+"""SAGE, GCN and sagePL stacks: edge-list forward (``apply``) and dense
+k-hop tree forward (``apply_tree``), with params as plain dicts of f32
+tensors.
 
-Port of ``noise_gnn_tpu/models/nets.py`` for the modules this slice runs,
-``sage`` and ``gcn``; a NetSpec of another module (sageH, sageFC, sagePL,
-gcn_head, gat) or with ``use_bn`` raises until it is ported. Params have
-the JAX pytree's structure,
+Port of ``noise_gnn_tpu/models/nets.py`` for the modules the port runs so
+far, ``sage``, ``gcn`` and ``sagePL``; a NetSpec of another module (sageH,
+sageFC, gcn_head, gat) or with ``use_bn`` raises until it is ported. Params
+have the JAX pytree's structure,
 ``{"convs": [{"w_neigh", "w_root", "b"} | {"w", "b"}, ...]}`` with weights
-``[in, out]`` (``models/convert.py`` maps one to the other). With a bf16
-``compute_dtype`` activations run in bf16 and the logits come back f32.
+``[in, out]``, plus ``"noise"`` [nbr_nodes, in_size] for sagePL
+(``models/convert.py`` maps one to the other). With a bf16 ``compute_dtype``
+activations run in bf16 and the outputs come back f32.
+
+sagePL (reference sagePL.py) is a SAGE stack with a learned per-node input
+noise: ``apply`` runs a pure pass and a pass on ``x + 0.1 * normalize(noise
+[n_id])`` and returns both branches' (hidden, log-softmax, logits). Its tree
+forward is not ported: the CTP step runs ``apply`` on the flat subgraph.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops.scatter import fast_take
 from .layers import (
     dropout,
     gcn_conv,
@@ -28,7 +36,7 @@ from .layers import (
     sage_conv_tree,
 )
 
-MODULES = ("sage", "gcn")
+MODULES = ("sage", "gcn", "sagePL")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -44,6 +52,7 @@ class NetSpec:
     num_layers: int = 2
     dropout: float = 0.5
     use_bn: bool = False
+    nbr_nodes: int = 1  # rows of sagePL's per-node noise parameter
     aggr: str = "mean"  # SAGE neighbor aggregation: 'mean' | 'max'
     compute_dtype: str = "float32"
 
@@ -67,7 +76,7 @@ class NetSpec:
         return _DTYPES[self.compute_dtype]
 
 
-def make_network(config: dict, in_size: int, out_size: int) -> NetSpec:
+def make_network(config: dict, in_size: int, out_size: int, nbr_nodes: int = 1) -> NetSpec:
     """Build a NetSpec from a reference-style config dict."""
     return NetSpec(
         module=config.get("module", "sage"),
@@ -77,20 +86,28 @@ def make_network(config: dict, in_size: int, out_size: int) -> NetSpec:
         num_layers=int(config.get("num_layers", 2)),
         dropout=float(config.get("dropout", 0.5)),
         use_bn=bool(config.get("use_bn", False)),
+        nbr_nodes=nbr_nodes,
         compute_dtype=str(config.get("compute_dtype", "float32")),
         aggr=str(config.get("aggr", "mean")),
     )
 
 
 def init_params(gen: torch.Generator, spec: NetSpec, device=None) -> dict:
-    """Glorot weights, zero biases, drawn from ``gen`` on ``device``."""
+    """Glorot weights, zero biases (and sagePL's N(0, 1) per-node noise),
+    drawn from ``gen`` on ``device``."""
     init = gcn_conv_init if spec.module == "gcn" else sage_conv_init
-    return {"convs": [init(gen, fin, fout, device) for fin, fout in spec.layer_sizes()]}
+    params = {"convs": [init(gen, fin, fout, device) for fin, fout in spec.layer_sizes()]}
+    if spec.module == "sagePL":
+        # learned per-node input noise (reference sagePL.py:22)
+        params["noise"] = torch.randn((spec.nbr_nodes, spec.in_size), generator=gen,
+                                      device=device, dtype=torch.float32)
+    return params
 
 
 def parameters(params: dict) -> list[torch.Tensor]:
     """The leaf tensors of a params dict, in a fixed order (for optimizers)."""
-    return [p[k] for p in params["convs"] for k in sorted(p)]
+    leaves = [p[k] for p in params["convs"] for k in sorted(p)]
+    return leaves + ([params["noise"]] if "noise" in params else [])
 
 
 def _conv(spec, p, x, edge_index, num_nodes, edge_mask):
@@ -111,19 +128,50 @@ def _conv_pre(spec, p, x_self, agg):
     return sage_conv_pre(p, x_self, agg)
 
 
-def apply(spec: NetSpec, params: dict, x: torch.Tensor, edge_index: torch.Tensor, *,
-          num_nodes: int | None = None, edge_mask=None, train: bool = False,
-          gen: torch.Generator | None = None) -> dict:
-    """Edge-list forward: conv -> (relu, dropout) between layers.
-    Returns {"logits": f32 [N, C]}."""
-    n = num_nodes if num_nodes is not None else x.shape[0]
-    x = x.to(spec.dtype)
+def _l2_normalize_rows(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """F.normalize(dim=1) parity: v / max(||v||_2, eps)."""
+    return v / torch.sqrt((v * v).sum(dim=-1, keepdim=True)).clamp(min=eps)
+
+
+def _stack_forward(spec, params, x, edge_index, n, edge_mask, train, gen):
+    """Conv -> (relu, dropout) between layers. Returns (logits, h): h is the
+    post-ReLU hidden of the last non-final layer, before its dropout
+    (reference sagePL.py:60)."""
+    h = x
     for i, p in enumerate(params["convs"]):
         x = _conv(spec, p, x, edge_index, n, edge_mask)
         if i != spec.num_layers - 1:
-            x = torch.relu(x)
+            x = h = torch.relu(x)
             x = dropout(gen, x, spec.dropout, train)
-    return {"logits": x.float()}
+    return x, h
+
+
+def apply(spec: NetSpec, params: dict, x: torch.Tensor, edge_index, *,
+          num_nodes: int | None = None, edge_mask=None, train: bool = False,
+          gen: torch.Generator | None = None, n_id: torch.Tensor | None = None,
+          noise_rate: float = 0.1) -> dict:
+    """Edge-list forward (``edge_index`` [2, E] or a TreeTopo). Returns
+    {"logits"} for sage/gcn and, for sagePL, {"h_pure", "y_pure", "z_pure",
+    "h_noisy", "y_noisy", "z_noisy"}, all f32; ``n_id`` maps the rows of x
+    to the graph's nodes, whose noise rows the noisy pass adds."""
+    n = num_nodes if num_nodes is not None else x.shape[0]
+    x = x.to(spec.dtype)
+    if spec.module != "sagePL":
+        return {"logits": _stack_forward(spec, params, x, edge_index, n, edge_mask, train,
+                                         gen)[0].float()}
+    z_pure, h_pure = _stack_forward(spec, params, x, edge_index, n, edge_mask, train, gen)
+    noise = params["noise"]
+    nr = fast_take(noise, n_id) if n_id is not None else noise[:x.shape[0]]
+    x_noisy = x + (_l2_normalize_rows(nr) * noise_rate).to(x.dtype)
+    z_noisy, h_noisy = _stack_forward(spec, params, x_noisy, edge_index, n, edge_mask,
+                                      train, gen)
+    z_pure, z_noisy = z_pure.float(), z_noisy.float()
+    return {
+        "h_pure": h_pure.float(), "y_pure": torch.log_softmax(z_pure, dim=-1),
+        "z_pure": z_pure,
+        "h_noisy": h_noisy.float(), "y_noisy": torch.log_softmax(z_noisy, dim=-1),
+        "z_noisy": z_noisy,
+    }
 
 
 def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
@@ -138,6 +186,10 @@ def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
     mode) the tree is one hop shallower and the first layer's deepest conv
     uses the precomputed neighbor aggregate. Dropout draws one mask per
     depth array from ``gen``. Returns {"logits": f32 [B, C]}."""
+    if spec.module == "sagePL":
+        raise NotImplementedError("apply_tree for sagePL is not yet ported to "
+                                  "noise_gnn_tpu_torch (the CTP step runs apply on "
+                                  "the flat subgraph)")
     L = spec.num_layers
     exact = leaf_agg is not None
     want = L if exact else L + 1

@@ -12,6 +12,10 @@ Semantics kept from the JAX package:
   * padding masks (a masked parent has only masked children);
   * child-major order (children of frontier[i] occupy i*f .. (i+1)*f - 1).
 
+The tree also has a flat subgraph view with PyG's seed-first contract:
+local nodes 0..B-1 are the seeds, ``flat_n_id`` maps local -> global, and
+``flat_edge_index`` points each child at its parent.
+
 Random numbers come from an explicit ``torch.Generator`` on the graph's
 device; they cannot equal ``jax.random``'s, so the tests compare exactly
 only where no pick is random (every in-degree <= fanout).
@@ -19,8 +23,10 @@ only where no pick is random (every in-degree <= fanout).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -34,6 +40,39 @@ class TreeBatch(NamedTuple):
 
     def gather_features(self, x: torch.Tensor) -> list[torch.Tensor]:
         return [x[ids] for ids in self.n_ids]
+
+    def flat_n_id(self) -> torch.Tensor:
+        return torch.cat(self.n_ids)
+
+    def flat_node_mask(self) -> torch.Tensor:
+        return torch.cat(self.masks)
+
+    def flat_edges(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(edge_index_local [2, E_sub] int64, edge_mask [E_sub]): child -> parent."""
+        dev = self.masks[0].device
+        ei = torch.from_numpy(flat_edge_index(self.batch_size, self.fanouts)).to(dev).long()
+        if len(self.masks) > 1:
+            return ei, torch.cat(self.masks[1:])
+        return ei, torch.zeros((0,), dtype=torch.bool, device=dev)
+
+
+@functools.lru_cache(maxsize=64)
+def flat_edge_index(batch_size: int, fanouts: tuple[int, ...]) -> np.ndarray:
+    """Structural edge list of the sampled tree (constant per config): the
+    child at depth d+1, flat position base_{d+1} + j, connects to its parent
+    base_d + j // fanouts[d]; messages flow child -> parent."""
+    sizes = [batch_size]
+    for f in fanouts:
+        sizes.append(sizes[-1] * f)
+    bases = np.cumsum([0] + sizes[:-1])
+    src, dst = [], []
+    for d, f in enumerate(fanouts):
+        j = np.arange(sizes[d + 1], dtype=np.int32)
+        src.append(bases[d + 1] + j)
+        dst.append(bases[d] + j // f)
+    if not src:
+        return np.zeros((2, 0), np.int32)
+    return np.stack([np.concatenate(src), np.concatenate(dst)]).astype(np.int32)
 
 
 def _sample_one_hop(gen: torch.Generator, indptr: torch.Tensor, indices: torch.Tensor,

@@ -3,8 +3,8 @@
 Port of ``noise_gnn_tpu/ops/scatter.py``. ``edge_index`` is [2, E] (row 0 =
 source, row 1 = destination); masked edges are routed to a dead row
 ``num_nodes`` that is sliced off. Accumulation is fp32 regardless of input
-dtype. The JAX module's ``fast_take`` (a TPU gather workaround) is plain
-indexing here. Large graphs (E * F above ~128 M elements) accumulate over
+dtype. The JAX module's ``fast_take`` (a TPU gather workaround) is one
+``torch.index_select`` here. Large graphs (E * F above ~128 M elements) accumulate over
 edge chunks so the [E, F] message matrix never materializes.
 """
 
@@ -25,6 +25,20 @@ def _routed(edge_index, edge_mask, num_nodes):
     if edge_mask is not None:
         dst = torch.where(edge_mask, dst, torch.full_like(dst, num_nodes))
     return src, dst
+
+
+def fast_take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``x[idx]`` along axis 0, for an index tensor of any shape."""
+    return torch.index_select(x, 0, idx.reshape(-1)).reshape(*idx.shape, *x.shape[1:])
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Sum ``data`` rows into ``num_segments`` buckets; fp32 accumulation,
+    result in ``data``'s dtype."""
+    out = torch.zeros((num_segments, *data.shape[1:]), dtype=_acc_dtype(data.dtype),
+                      device=data.device)
+    return out.index_add_(0, segment_ids.long(), data.to(out.dtype)).to(data.dtype)
 
 
 def segment_count(segment_ids: torch.Tensor, num_segments: int,

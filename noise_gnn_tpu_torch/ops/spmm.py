@@ -14,27 +14,21 @@ with the XLA gather around it), and its plain PyTorch version.
 
 The kernel is memory-bound on the H100; see the note at the top of
 ``csrc/spmm.cu``. The library is compiled with ``nvcc`` into a plain-C shared
-object at first use (``build/kernels/`` at the repo root) and loaded with
-``ctypes``; importing this module needs neither ``nvcc`` nor a card.
+object at first use (``ops/cuda_build.py``) and loaded with ``ctypes``;
+importing this module needs neither ``nvcc`` nor a card.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "spmm.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+from .cuda_build import CSRC, build_library
+
+_SRC = CSRC / "spmm.cu"
 
 # Kernel launches by feature width, counted where the wrapper launches the
 # kernel and nowhere else (the plain version never counts). A run resets it
@@ -48,35 +42,9 @@ _SLAB_ELEMS = 1 << 27
 _lib = None
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA SpMM is built from "
-                           f"{_SRC} at first use and needs the CUDA toolkit")
-    return nvcc
-
-
 def build() -> Path:
-    """Compile ``csrc/spmm.cu`` unless this exact source is built already,
-    and return the library's path. The library name carries a hash of the
-    source and flags, so an edited source is rebuilt."""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libngt_spmm_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
-        os.replace(tmp, lib)  # atomic: concurrent builds race harmlessly
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
+    """Compile ``csrc/spmm.cu`` unless it is built already; the library's path."""
+    return build_library(_SRC, "ngt_spmm")
 
 
 def _load():

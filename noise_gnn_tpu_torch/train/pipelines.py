@@ -1,18 +1,21 @@
-"""Training pipelines of the main path: ``PipelineCO`` and ``PipelineS``.
+"""Training pipelines: ``PipelineCO``, ``PipelineS`` and ``PipelineCTP``.
 
 Port of ``noise_gnn_tpu/train/pipelines.py`` for one device: the host data
 (graph, splits, ``flip_label`` noise keyed by (seed, run)), the exact-leaf
-table, the co-teaching loop with paired full-graph eval, the baseline loop,
-the reinit-retry shell and the run summaries. The JAX package's mesh, TP,
-halo and full-batch branches are not part of it: ``full_graph: true`` logs
-and falls back to sampled-tree training (as the JAX package does on one
-device) and ``model_parallel > 1`` raises. Checkpoint/resume, ``do_train:
-false`` and ``do_plot`` raise "not yet ported".
+table, the co-teaching loop with paired full-graph eval, the co-teaching +
+consistency (CTP) loop, the baseline loop, checkpoint/resume, ``do_train:
+false`` (load and evaluate), the reinit-retry shell and the run summaries.
+The JAX package's mesh, TP, halo and full-batch branches are not part of it:
+``full_graph: true`` logs and falls back to sampled-tree training (as the JAX
+package does on one device) and ``model_parallel > 1`` raises. ``do_plot``
+raises "not yet ported".
 
 Randomness: the host ``np.random.Generator`` (split batches, label noise)
 is consumed exactly as in the JAX package, so both draw the same epochs'
 seed batches; device randomness (init, sampling, dropout) comes from one
-``torch.Generator`` on the run's device, seeded from the config.
+``torch.Generator`` on the run's device, seeded from the config. A
+checkpoint carries both streams' states, so kill-and-resume replays the
+uninterrupted run's batches and trees.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from ..losses.schedules import forget_rate_schedule
 from ..models import nets
 from ..noise import flip_label, noise_or_not
 from ..ops.leaf_agg import fused_leaf_table, leaf_agg_eligible
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.config import device_of, run_name, validate_config
 from ..utils.logging import MetricsWriter, initialize_logger
 from ..utils.profiling import tree_edges_per_batch
@@ -93,13 +97,8 @@ class BasePipeline:
 
     def __init__(self, config: dict):
         validate_config(config)
-        for key, what in (("resume", "resume"), ("do_plot", "do_plot: true")):
-            if config.get(key):
-                raise not_yet_ported(what)
-        if int(config.get("ckpt_every", 0)) > 0:
-            raise not_yet_ported("checkpointing (ckpt_every > 0)")
-        if not config.get("do_train", True):
-            raise not_yet_ported("do_train: false")
+        if config.get("do_plot"):
+            raise not_yet_ported("do_plot: true")
         if int(config.get("model_parallel", 1)) > 1:
             raise ValueError(
                 f"model_parallel={config['model_parallel']} needs a multi-device "
@@ -159,6 +158,55 @@ class BasePipeline:
         self._leaf_tables = {}  # exact-leaf tables by aggregation kind
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(config.get("seed", 0)))
+
+    # --------------------------------------------------- checkpoint/resume
+    # The bundle is each net's params and Adam moments; the metadata carries
+    # the run position and the states of the host rng and the device
+    # generator, so a resumed process replays the exact batch permutations
+    # and trees (JAX package pipelines.py:299-338).
+
+    def _ckpt_meta(self, run: int, epoch: int, attempt: int = 0) -> dict:
+        # `attempt` = reinit-retry counter: a checkpoint saved mid-attempt
+        # must restore it, or a crash during a retry would allow more
+        # re-inits than reinit_retries
+        return {"run": run, "epoch": epoch, "attempt": attempt,
+                "rng_state": self.rng.bit_generator.state,
+                "gen_state": bytes(self.gen.get_state().tolist()).hex()}
+
+    def _ckpt_setup(self, tag: str):
+        """(ckpt_every, ckpt_path) for a loop family; ``ckpt_path`` overrides
+        the derived name, which embeds the date."""
+        c = self.config
+        path = c.get("ckpt_path") or f"{c['out_dir']}/models/{self.output_name}_{tag}_ckpt"
+        return int(c.get("ckpt_every", 0)), path
+
+    def _state_template(self, spec) -> dict:
+        """A state tree of the spec's shapes, from a throwaway generator (the
+        run's own generator is not consumed)."""
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        return S.state_tree(S.init_state(gen, spec, self.make_optimizer, self.device))
+
+    def _save_ckpt(self, path: str, states, run: int, epoch: int, attempt: int) -> None:
+        save_checkpoint(path, tuple(S.state_tree(s) for s in states),
+                        self._ckpt_meta(run, epoch, attempt))
+
+    def _try_resume(self, ckpt_path: str, spec, n_states: int = 2):
+        """Load the states and positions if ``resume`` is set and the bundle
+        exists, restoring the host rng and the device generator. Returns
+        (states_or_None, start_run, start_epoch, meta)."""
+        if not (self.config.get("resume") and os.path.exists(ckpt_path + ".npz")):
+            return None, 0, 0, {}
+        tmpl = self._state_template(spec)
+        trees, meta = load_checkpoint(ckpt_path, (tmpl,) * n_states)
+        if meta.get("rng_state"):
+            self.rng.bit_generator.state = meta["rng_state"]
+        if meta.get("gen_state"):
+            self.gen.set_state(torch.tensor(list(bytes.fromhex(meta["gen_state"])),
+                                            dtype=torch.uint8))
+        states = tuple(S.state_from_tree(t, self.make_optimizer) for t in trees)
+        run, epoch = int(meta["run"]), int(meta["epoch"]) + 1
+        self.logger.info(f"   Resumed from {ckpt_path} at run {run} epoch {epoch}")
+        return states, run, epoch, meta
 
     # -------------------------------------------------------------- helpers
 
@@ -253,7 +301,7 @@ class BasePipeline:
     def spec_for(self, module: str | None = None) -> nets.NetSpec:
         c = self.config
         spec = nets.make_network({**c, "module": module or c["module"]},
-                                 c["nbr_features"], c["nbr_classes"])
+                                 c["nbr_features"], c["nbr_classes"], c["nbr_nodes"])
         if c.get("full_graph"):
             self.logger.info(
                 "   full_graph requested but needs a multi-device mesh - "
@@ -303,11 +351,14 @@ class BasePipeline:
         return RunSummary(mean, std, extra)
 
     def _degen_retry(self, run: int, attempt: int, run_pure, best: float,
-                     run_loss=None, run_fit=None) -> bool:
+                     resumed_partial: bool, run_loss=None, run_fit=None) -> bool:
         """True = re-enter the run's epoch loop with fresh inits (the noise
         realization stays fixed, so paired A/Bs stay paired): the run's
         selection never found signal, or its optimization collapsed, and
-        ``reinit_retries`` allows another attempt."""
+        ``reinit_retries`` allows another attempt. A run resumed mid-way has
+        a truncated purity tail and is never judged."""
+        if resumed_partial:
+            return False
         retries = int(self.config.get("reinit_retries", 0))
         clean_frac = float(np.mean(self.clean))
         degen = selection_degenerate(run_pure, clean_frac)
@@ -404,6 +455,8 @@ class PipelineCO(BasePipeline):
 
     def loop(self):
         c = self.config
+        if not c.get("do_train", True):
+            return self._load_and_eval()
         self.logger.info(f"{c['num_runs']} RUNS")
         results = {}
         if c["train_type"] in ("nalgo", "both"):
@@ -411,6 +464,21 @@ class PipelineCO(BasePipeline):
         if c["train_type"] in ("baseline", "both"):
             results["baseline"] = self._loop_baseline()
         return results
+
+    def _load_and_eval(self):
+        """do_train: false - load a checkpoint of two nets and evaluate each
+        (JAX package pipelines.py:823-840; reference src/pipeline_s.py:305-313,
+        with config-derived paths)."""
+        c = self.config
+        spec = self.spec_for()
+        path = c.get("load_model_path") or c.get("ckpt_path") or (
+            f"{c['out_dir']}/models/{self.output_name}_ct_ckpt")
+        tmpl = self._state_template(spec)
+        (t1, t2), meta = load_checkpoint(path, (tmpl, tmpl))
+        evaluate = self.make_eval(spec)
+        acc1, acc2 = evaluate(t1["params"]), evaluate(t2["params"])
+        self.logger.info(f"   Load eval v1: {acc1['valid']:.3f} v2: {acc2['valid']:.3f}")
+        return {"loaded": (acc1, acc2), "meta": meta}
 
     def _loop_ct(self):
         c = self.config
@@ -421,16 +489,21 @@ class PipelineCO(BasePipeline):
         train_idx = self.split_idx["train"]
         bs = int(c["batch_size"])
         edges_per_batch = tree_edges_per_batch(bs, self.fanouts)
+        ckpt_every, ckpt_path = self._ckpt_setup("ct")
         best_accs, test_hists, reinits, pure_hist = [], [], [], []
-        for run in range(int(c["num_runs"])):
+        states, start_run, start_epoch, meta = self._try_resume(ckpt_path, spec)
+        s1, s2 = states if states is not None else (None, None)
+        for run in range(start_run, int(c["num_runs"])):
             if self.reflip_per_run:
                 self._flip_labels(run)  # (seed, run)-keyed: pairs the A/B
-            attempt = 0
+            attempt = int(meta.get("attempt", 0)) if run == start_run else 0
             while True:
-                s1, s2 = self.init_state(spec), self.init_state(spec)
+                resumed_partial = start_epoch > 0
+                if s1 is None:
+                    s1, s2 = self.init_state(spec), self.init_state(spec)
                 best1 = best2 = 0.0
                 run_pure, run_test, run_loss, run_fit = [], [], [], []
-                for epoch in range(int(c["max_epochs"])):
+                for epoch in range(start_epoch, int(c["max_epochs"])):
                     t_train = time.perf_counter()
                     seeds, masks = self.epoch_seed_matrix(train_idx, bs)
                     nb = seeds.shape[0]
@@ -464,6 +537,8 @@ class PipelineCO(BasePipeline):
                         epoch_train_s=t_train, epoch_eval_s=t_eval,
                         edges_per_s=nb * edges_per_batch / max(t_train, 1e-9),
                     )
+                    if ckpt_every and (epoch + 1) % ckpt_every == 0:
+                        self._save_ckpt(ckpt_path, (s1, s2), run, epoch, attempt)
                     if c["epoch_logger"] and not ((epoch + 1) % 10):
                         self.logger.info(
                             f"   Train epoch {epoch + 1}/{c['max_epochs']} --- "
@@ -472,8 +547,10 @@ class PipelineCO(BasePipeline):
                             f"tst1: {acc1['test']:.3f} tst2: {acc2['test']:.3f}")
                 self.logger.info(
                     f"   RUN {run + 1} - best nalgo test acc1: {best1:.3f}   acc2: {best2:.3f}")
+                s1 = s2 = None
+                start_epoch = 0
                 if self._degen_retry(run, attempt, run_pure, max(best1, best2),
-                                     run_loss=run_loss, run_fit=run_fit):
+                                     resumed_partial, run_loss=run_loss, run_fit=run_fit):
                     attempt += 1
                     continue
                 break
@@ -491,3 +568,85 @@ class PipelineS(PipelineCO):
 
     schedule_variant = "small"
     reflip_per_run = False
+
+
+class PipelineCTP(BasePipeline):
+    """Co-teaching + uncertainty-weighted FixMatch consistency on sagePL
+    (JAX package pipelines.py:1092-1179; reference PipelineCTP,
+    src/pipeline_ctp.py). Epoch 0 trains without the consistency term,
+    every later epoch with it."""
+
+    schedule_variant = "ogb"
+
+    def loop(self):
+        """train_type dispatch: a single branch returns its (mean, std);
+        'both' returns a dict with both (paired draws)."""
+        c = self.config
+        results = {}
+        if c["train_type"] in ("nalgo", "both"):
+            results["nalgo"] = self._loop_ctp()
+        if c["train_type"] in ("baseline", "both"):
+            results["baseline"] = self._loop_baseline()
+        return results if len(results) > 1 else next(iter(results.values()))
+
+    def _loop_ctp(self):
+        c = self.config
+        spec = self.spec_for()  # sagePL
+        spl_noise = float(c.get("spl_noise", 0.1))
+        evaluate_pair = self.make_eval_pair(spec)
+        train_idx = self.split_idx["train"]
+        bs = int(c["batch_size"])
+        ckpt_every, ckpt_path = self._ckpt_setup("ctp")
+        states, start_run, start_epoch, meta = self._try_resume(ckpt_path, spec)
+        s1, s2 = states if states is not None else (None, None)
+        best_accs, test_hists, reinits = [], [], []
+        for run in range(start_run, int(c["num_runs"])):
+            if self.reflip_per_run:
+                self._flip_labels(run)  # (seed, run)-keyed: pairs the A/B
+            attempt = int(meta.get("attempt", 0)) if run == start_run else 0
+            while True:
+                resumed_partial = start_epoch > 0
+                if s1 is None:
+                    s1, s2 = self.init_state(spec), self.init_state(spec)
+                best = 0.0
+                run_pure, run_test = [], []
+                for epoch in range(start_epoch, int(c["max_epochs"])):
+                    seeds, masks = self.epoch_seed_matrix(train_idx, bs)
+                    nb = seeds.shape[0]
+                    t_train = time.perf_counter()
+                    agg = S.ctp_epoch(spec, s1, s2, self.data, seeds, masks, self.gen,
+                                      float(self.rate_schedule[epoch]), self.fanouts,
+                                      use_cr=epoch > 0, beta=1.0, spl_noise=spl_noise)
+                    rec = self._fetch_metrics(agg, nb)  # device sync: train done
+                    t_train = time.perf_counter() - t_train
+                    t_eval = time.perf_counter()
+                    acc1, acc2 = evaluate_pair(s1.params, s2.params)
+                    t_eval = time.perf_counter() - t_eval
+                    best = max(best, acc1["test"], acc2["test"])
+                    run_test.append(max(acc1["test"], acc2["test"]))
+                    run_pure.append((rec["pure_ratio_1"], rec["pure_ratio_2"]))
+                    self.metrics.write(
+                        event="epoch_ctp", run=run, epoch=epoch, **rec,
+                        epoch_train_s=t_train, epoch_eval_s=t_eval,
+                        val_acc_1=acc1["valid"], val_acc_2=acc2["valid"],
+                        test_acc_1=acc1["test"], test_acc_2=acc2["test"],
+                    )
+                    if ckpt_every and (epoch + 1) % ckpt_every == 0:
+                        self._save_ckpt(ckpt_path, (s1, s2), run, epoch, attempt)
+                    if c["epoch_logger"] and not ((epoch + 1) % 5):
+                        self.logger.info(
+                            f"   Train epoch {epoch + 1}/{c['max_epochs']} --- "
+                            f"v1: {acc1['valid']:.3f} v2: {acc2['valid']:.3f} "
+                            f"tst1: {acc1['test']:.3f} tst2: {acc2['test']:.3f}")
+                self.logger.info(f"   RUN {run + 1} - best test acc: {best:.3f}")
+                s1, s2, start_epoch = None, None, 0
+                if self._degen_retry(run, attempt, run_pure, best, resumed_partial):
+                    attempt += 1
+                    continue
+                break
+            # resumed at start_epoch >= max_epochs, the epoch loop never ran
+            # and `best` stays 0.0; the JAX package records it as it is
+            best_accs.append(best)
+            test_hists.append(run_test)
+            reinits.append(attempt)
+        return self._report_runs("ctp", best_accs, test_hists, reinits)

@@ -1,8 +1,9 @@
-"""Whole-epoch training loops for co-teaching and the baseline.
+"""Whole-epoch training loops for co-teaching, the baseline and CTP.
 
-Port of the main-path parts of ``noise_gnn_tpu/train/steps.py``:
-``GraphData``, ``_sample_tree``, ``TrainState``/``init_state``,
-``ct_epoch_fn`` and ``make_baseline_epoch``. Where JAX scans a jitted step
+Port of these parts of ``noise_gnn_tpu/train/steps.py``: ``GraphData``,
+``_sample_tree``, ``TrainState``/``init_state``, ``ct_epoch_fn``,
+``make_baseline_epoch``, ``_flat_subgraph``, ``_ctp_step_math`` and
+``make_ctp_epoch``. Where JAX scans a jitted step
 over the epoch's seed batches, the port runs a Python loop of eager steps:
 sample the tree on the device, gather its features, forward, loss,
 backward, optimizer step. Per-step metrics are added into one device
@@ -16,9 +17,12 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..losses.consistency import fix_cr, get_uncertainty, neighbor_align
 from ..losses.coteaching import backward_correction, codi_loss, cross_entropy, ct_loss
 from ..models import nets
 from ..ops.sampler import sample_khop_tree
+from ..ops.scatter import fast_take
+from ..ops.tree_agg import TreeTopo
 
 
 @dataclass
@@ -70,6 +74,32 @@ def state_from_params(params: dict, make_optimizer: Callable) -> TrainState:
     for p in leaves:
         p.requires_grad_(True)
     return TrainState(params, make_optimizer(leaves))
+
+
+def state_tree(s: TrainState) -> dict:
+    """The state as a nest of tensors for ``utils/checkpoint.py``: the
+    params and, for each leaf of ``nets.parameters``, Adam's step and
+    moments (zeros before the first step)."""
+    opt = []
+    for p in nets.parameters(s.params):
+        st = s.opt.state.get(p)
+        opt.append({
+            "step": (st["step"].detach().cpu().float().reshape(()) if st
+                     else torch.zeros((), dtype=torch.float32)),
+            "exp_avg": st["exp_avg"] if st else torch.zeros_like(p),
+            "exp_avg_sq": st["exp_avg_sq"] if st else torch.zeros_like(p),
+        })
+    return {"params": s.params, "opt": opt}
+
+
+def state_from_tree(tree: dict, make_optimizer: Callable) -> TrainState:
+    """The inverse of :func:`state_tree`: a state holding the tree's params
+    and optimizer moments."""
+    s = state_from_params(tree["params"], make_optimizer)
+    sd = s.opt.state_dict()
+    sd["state"] = {i: dict(o) for i, o in enumerate(tree["opt"])}
+    s.opt.load_state_dict(sd)
+    return s
 
 
 def _acc_count(logits, y_true, mask) -> torch.Tensor:
@@ -159,3 +189,91 @@ def baseline_epoch(spec: nets.NetSpec, s: TrainState, data: GraphData,
             corrupt.sum().float(),
         ])
     return dict(zip(BASELINE_METRICS, tot))
+
+
+# ------------------------------------------------- co-teaching + consistency
+
+
+def _flat_subgraph(data: GraphData, tb):
+    """The flat seed-first subgraph view of a sampled tree: (x_sub, n_id,
+    node_mask, topo), with the topology as a :class:`TreeTopo` so the conv
+    layers take the scatter-free structured aggregation."""
+    n_id = tb.flat_n_id()
+    node_mask = tb.flat_node_mask()
+    edge_mask = (torch.cat(tb.masks[1:]) if len(tb.masks) > 1
+                 else torch.zeros((0,), dtype=torch.bool, device=n_id.device))
+    topo = TreeTopo(tb.batch_size, tb.fanouts, edge_mask)
+    x_sub = fast_take(data.x, n_id)
+    x_sub = torch.where(node_mask[:, None], x_sub, torch.zeros_like(x_sub))
+    return x_sub, n_id, node_mask, topo
+
+
+def ctp_step_loss(spec: nets.NetSpec, p1: dict, p2: dict, data: GraphData, seeds, mask,
+                  gen: torch.Generator, forget_rate, fanouts: tuple[int, ...],
+                  use_cr: bool = False, beta: float = 1.0, spl_noise: float = 0.1,
+                  use_ncr: bool = False, ncr_temp: float = 0.1):
+    """Loss of one CTP step (JAX ``_ctp_step_math``): sample the tree, run
+    both sagePL nets on its flat subgraph, co-teaching on the pure logits,
+    plus beta x the neighbourhood-consistency term (``use_ncr``) and the
+    uncertainty-weighted FixMatch term (``use_cr``). Returns
+    (loss_1 + loss_2, (ct, o1, o2, cr1, cr2))."""
+    tb = sample_khop_tree(gen, data.csr, seeds, fanouts, mask)
+    x_sub, n_id, _, topo = _flat_subgraph(data, tb)
+    n_sub, bsz = x_sub.shape[0], tb.batch_size
+    yb, cb = data.yhn[seeds], data.clean[seeds]
+
+    def one_out(p):
+        return nets.apply(spec, p, x_sub, topo, num_nodes=n_sub, train=True, gen=gen,
+                          n_id=n_id, noise_rate=spl_noise)
+
+    out1, out2 = one_out(p1), one_out(p2)
+    o1, o2 = out1["z_pure"][:bsz], out2["z_pure"][:bsz]
+    ct = ct_loss(o1, o2, yb, forget_rate, cb, mask)
+    loss1, loss2 = ct.loss_1, ct.loss_2
+    zero = torch.zeros((), dtype=torch.float32, device=x_sub.device)
+    cr1 = cr2 = zero
+    if use_ncr:
+        # the reference's commented NCR path (src/pipeline_ctp.py:119-126)
+        pad = torch.zeros(n_sub - bsz, dtype=torch.bool, device=x_sub.device)
+        loss1 = loss1 + beta * neighbor_align(topo, out1["y_pure"], torch.cat([ct.noisy_1, pad]),
+                                              temp=ncr_temp)
+        loss2 = loss2 + beta * neighbor_align(topo, out2["y_pure"], torch.cat([ct.noisy_2, pad]),
+                                              temp=ncr_temp)
+    if use_cr:
+        w1 = get_uncertainty(topo, out1["y_pure"], spec.out_size).detach()
+        w2 = get_uncertainty(topo, out2["y_pure"], spec.out_size).detach()
+        cr1 = fix_cr(out1["y_pure"], out1["y_noisy"], bsz, w=w1, sample_mask=mask)
+        cr2 = fix_cr(out2["y_pure"], out2["y_noisy"], bsz, w=w2, sample_mask=mask)
+        loss1 = loss1 + beta * cr1
+        loss2 = loss2 + beta * cr2
+    return loss1 + loss2, (ct, o1, o2, cr1, cr2)
+
+
+CTP_METRICS = ("loss_1", "loss_2", "loss_cr_1", "loss_cr_2", "pure_ratio_1",
+               "pure_ratio_2", "correct_1", "correct_2")
+
+
+def ctp_epoch(spec: nets.NetSpec, s1: TrainState, s2: TrainState, data: GraphData,
+              seeds: torch.Tensor, masks: torch.Tensor, gen: torch.Generator,
+              forget_rate: float, fanouts: tuple[int, ...], use_cr: bool = False,
+              beta: float = 1.0, spl_noise: float = 0.1, use_ncr: bool = False,
+              ncr_temp: float = 0.1) -> dict:
+    """One co-teaching + consistency epoch over seed batches [nsteps, B]
+    (JAX ``make_ctp_epoch``). Updates both states in place; returns the
+    per-step metrics SUMMED over the epoch (device scalars)."""
+    fr = torch.tensor(forget_rate, dtype=torch.float32, device=seeds.device)
+    tot = torch.zeros(len(CTP_METRICS), dtype=torch.float32, device=seeds.device)
+    for b_seeds, b_mask in zip(seeds, masks):
+        loss, (ct, o1, o2, cr1, cr2) = ctp_step_loss(
+            spec, s1.params, s2.params, data, b_seeds, b_mask, gen, fr, fanouts,
+            use_cr=use_cr, beta=beta, spl_noise=spl_noise, use_ncr=use_ncr,
+            ncr_temp=ncr_temp)
+        _step((s1, s2), loss)
+        yt = data.y[b_seeds]
+        tot += torch.stack([
+            (ct.loss_1 + beta * cr1).detach(), (ct.loss_2 + beta * cr2).detach(),
+            cr1.detach(), cr2.detach(), ct.pure_ratio_1, ct.pure_ratio_2,
+            _acc_count(o1.detach(), yt, b_mask).float(),
+            _acc_count(o2.detach(), yt, b_mask).float(),
+        ])
+    return dict(zip(CTP_METRICS, tot))

@@ -1,5 +1,6 @@
-"""Tests of the port that need a CUDA card: the CUDA SpMM against its plain
-version, and the main path on a small graph. They skip where no card is
+"""Tests of the port that need a CUDA card: the CUDA SpMM and the
+gather-ring kernel against their plain versions, and the main path on a
+small graph. They skip where no card is
 visible. This file imports neither JAX nor the JAX package, so on a card
 without JAX it runs without the repo's conftest:
 
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from noise_gnn_tpu_torch.graph.containers import CSRGraph
+from noise_gnn_tpu_torch.ops import gather_ring as gr
 from noise_gnn_tpu_torch.ops import spmm
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -21,7 +23,7 @@ ROOT = Path(__file__).resolve().parent.parent
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the CUDA SpMM has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -94,3 +96,29 @@ def test_main_path_small_on_cuda(cuda, tmp_path):
     assert all(np.isfinite(v[0]) for v in res.values())
     # leaf table + 2 pair-eval layers x 2 epochs + 2 single-eval layers x 2 epochs
     assert sum(spmm.launch_counts.values()) >= 9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [4, 128, 256])
+def test_gather_ring_kernel_matches_plain(cuda, f):
+    """Bit-equal final rings for depth == chunk, depth < chunk (slots
+    rewritten, the last copy kept) and depth 1, with a launch counted each."""
+    rng = np.random.default_rng(f)
+    x3 = torch.from_numpy(rng.standard_normal((1000, 8, f)).astype(np.float32)).to(cuda)
+    for depth, chunk in ((1, 1), (1, 8), (2, 8), (3, 16), (16, 16), (7, 64), (24, 2048)):
+        idx = torch.from_numpy(rng.integers(0, 1000, chunk * 5).astype(np.int32)).to(cuda)
+        before = gr.launch_counts[depth]
+        got = gr.gather_ring(x3, idx, depth, chunk, 3)
+        torch.cuda.synchronize()
+        assert gr.launch_counts[depth] == before + 1
+        assert torch.equal(got, gr.gather_ring_reference(x3, idx, depth, chunk, 3))
+
+
+@pytest.mark.gpu
+def test_gather_ring_kernel_refuses(cuda):
+    x3 = torch.zeros((10, 8, 1024), device=cuda)
+    idx = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        gr.gather_ring(x3, idx, 16, 64, 1)  # 16 blocks of 32 KB
+    with pytest.raises(ValueError, match="outside"):
+        gr.gather_ring(x3, idx + 10, 2, 64, 1)

@@ -55,8 +55,8 @@ def test_baseline_algo_dispatch(tmp_path):
 
 
 @pytest.mark.parametrize("over", [
-    {"resume": True}, {"ckpt_every": 5}, {"do_train": False}, {"do_plot": True},
-    {"algo_type": "ctp"}, {"what": "_test2"}, {"module": "sagePL"},
+    {"algo_type": "contrastive"}, {"algo_type": "grid"}, {"algo_type": "hpseudo"},
+    {"do_plot": True}, {"algo_type": "analysis"}, {"what": "_test2"}, {"module": "sageH"},
 ])
 def test_not_yet_ported_raises(tmp_path, over):
     with pytest.raises(NotImplementedError, match="not yet ported"):
