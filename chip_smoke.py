@@ -61,7 +61,10 @@ when every phase passed):
    JAX tool's shapes (x [1,000,000, 256] f32, E = 131,072, P = 16, chunk
    2048, depth 2, 4, 8, 16, 24) with the gather-ring counts reset before
    and read after; then, at the same shapes, the kernel's rings bit-equal
-   to the plain version's at every depth, and the plain version timed.
+   to the plain version's at every depth, and the plain version (which,
+   like the kernel, makes all P x E copies: one ``index_select``) timed.
+   The bound counts each distinct block read once from device memory (the
+   passes' re-reads may hit L2), the ids, and the final rings written.
 6. The SpMM at the main paths' shapes on the full graphs (products F = 100,
    256 and 512 bf16; arxiv F = 128, 512 and 256 f32; mean): the kernel held
    against its plain version with the tolerance of phase 2, then timed with
@@ -100,11 +103,10 @@ from noise_gnn_tpu_torch.models.convert import params_from_jax, params_to_jax
 from noise_gnn_tpu_torch.ops import gather_ring, spmm
 from noise_gnn_tpu_torch.ops.leaf_agg import fused_leaf_table
 from noise_gnn_tpu_torch.tools import gather_probe
-from noise_gnn_tpu_torch.tools.gather_probe import HBM_BYTES_PER_S, time_ms
 from noise_gnn_tpu_torch.train import steps
 from noise_gnn_tpu_torch.utils.config import load_config
+from noise_gnn_tpu_torch.utils.profiling import FP32_OPS_PER_S, HBM_BYTES_PER_S, time_ms
 
-FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 CONFIG = "configs/config_products.yml"
 CTP_CONFIG = "configs/config_ctp.yml"
 SOURCE = "noise_gnn_tpu_torch/csrc/spmm.cu"
@@ -114,6 +116,10 @@ GATHER_REPLACES = "tools/exp_dma_gather.py:56"
 # the main paths' SpMM shapes: (name, F, launches expected per run)
 SHAPES = (("leaf table", 100, 1), ("eval pair", 512, 4), ("eval single", 256, 4))
 CTP_SHAPES = (("arxiv leaf table", 128), ("arxiv eval pair", 512), ("arxiv load eval", 256))
+# the gather ring's small (depth, chunk) cases: depth 1, depth == chunk, and
+# depth < chunk (slots rewritten, the last copy kept); also run by
+# tests/test_torch_port_gpu.py
+GATHER_CASES = ((1, 1), (1, 8), (2, 8), (3, 16), (16, 16), (7, 64), (24, 2048))
 
 
 def log(msg: str) -> None:
@@ -291,7 +297,7 @@ def check_gather_small(dev) -> list[dict]:
     cases = []
     for f in (4, 128, 256):
         x3 = torch.from_numpy(rng.standard_normal((1000, 8, f)).astype(np.float32)).to(dev)
-        for depth, chunk in ((1, 1), (1, 8), (2, 8), (3, 16), (16, 16), (7, 64), (24, 2048)):
+        for depth, chunk in GATHER_CASES:
             idx = torch.from_numpy(rng.integers(0, 1000, chunk * 5).astype(np.int32)).to(dev)
             got = gather_ring.gather_ring(x3, idx, depth, chunk, 3)
             want = gather_ring.gather_ring_reference(x3, idx, depth, chunk, 3)
@@ -587,7 +593,8 @@ def run(out: Path) -> int:
     log(f"[1] device: {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"{kind} x{count}")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source
+    # a fresh checkout has nothing built: one nvcc per source, started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         libs = list(pool.map(lambda m: m.build(), (spmm, gather_ring)))
     build_s = time.perf_counter() - t0
     log(f"    built {libs[0].name} from {SOURCE} and {libs[1].name} from {GATHER_SOURCE} "
@@ -631,8 +638,7 @@ def run(out: Path) -> int:
             route="cuda", source=GATHER_SOURCE, replaces=GATHER_REPLACES,
             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=block_sel["ms"], library_rows_ms=row_sel["ms"],
-            traffic_at_hbm_ms=r["traffic_at_hbm_ms"]))
+            library_ms=block_sel["ms"], library_rows_ms=row_sel["ms"]))
     report = dict(nvidia_smi=smi, device=kind, count=count, build_s=build_s,
                   checks=cases, gather_checks=gather_cases, small_path=small,
                   small_ctp=small_ctp, main_path=main_rep, ctp_path=ctp_rep,

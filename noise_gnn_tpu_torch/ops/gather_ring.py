@@ -18,8 +18,9 @@ kernel returns.
   launch in ``launch_counts``) and raises on any other device, the CPU
   included: it is a probe of the card's gather throughput, which a plain
   version on the host would not measure.
-* :func:`gather_ring_reference` computes the same rings with plain indexing
-  on any device; the tests and ``chip_smoke.py`` hold the kernel against it.
+* :func:`gather_ring_reference` makes the same ``passes * E`` copies with
+  one plain ``index_select`` and keeps each slot's last, on any device; the
+  tests and ``chip_smoke.py`` hold the kernel against it.
 
 The library is built by ``nvcc`` at first use (``ops/cuda_build.py``) and
 loaded with ``ctypes``; importing this module needs neither ``nvcc`` nor a
@@ -88,13 +89,13 @@ def last_positions(depth: int, chunk: int) -> list[int]:
 
 def gather_ring_reference(x3: torch.Tensor, idx: torch.Tensor, depth: int, chunk: int,
                           passes: int) -> torch.Tensor:
-    """Plain version: the final rings ``[passes, E / chunk, depth, 8, F]``,
-    one indexing op over the copies that each slot keeps."""
+    """Plain version: the final rings ``[passes, E / chunk, depth, 8, F]``.
+    Like the kernel it makes every one of the ``passes * E`` copies (one
+    ``index_select``), then keeps each slot's last."""
     nchunks = _check(x3, idx, depth, chunk, passes)
+    copies = torch.index_select(x3, 0, idx.repeat(passes))
     pos = torch.tensor(last_positions(depth, chunk), device=idx.device)
-    kept = idx.view(nchunks, chunk)[:, pos].long()  # [nchunks, depth] block ids
-    ring = x3[kept]  # [nchunks, depth, 8, F]
-    return ring.unsqueeze(0).expand(passes, *ring.shape).contiguous()
+    return copies.view(passes, nchunks, chunk, *x3.shape[1:])[:, :, pos].contiguous()
 
 
 def gather_ring(x3: torch.Tensor, idx: torch.Tensor, depth: int, chunk: int,

@@ -47,13 +47,16 @@ class TreeBatch(NamedTuple):
     def flat_node_mask(self) -> torch.Tensor:
         return torch.cat(self.masks)
 
+    def flat_edge_mask(self) -> torch.Tensor:
+        """[E_sub] bool: which structural child -> parent edges are real."""
+        if len(self.masks) > 1:
+            return torch.cat(self.masks[1:])
+        return torch.zeros((0,), dtype=torch.bool, device=self.masks[0].device)
+
     def flat_edges(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(edge_index_local [2, E_sub] int64, edge_mask [E_sub]): child -> parent."""
-        dev = self.masks[0].device
-        ei = torch.from_numpy(flat_edge_index(self.batch_size, self.fanouts)).to(dev).long()
-        if len(self.masks) > 1:
-            return ei, torch.cat(self.masks[1:])
-        return ei, torch.zeros((0,), dtype=torch.bool, device=dev)
+        ei = flat_edge_index(self.batch_size, self.fanouts)
+        return torch.from_numpy(ei).to(self.masks[0].device).long(), self.flat_edge_mask()
 
 
 @functools.lru_cache(maxsize=64)

@@ -18,11 +18,15 @@ all its copies) and its bound. Two library yardsticks follow, each one
   (one ``index_select``): the comparison the TPU tool made against its
   ``fast_take``.
 
-Bounds count the bytes a call must move over 3.35 TB/s (the H100's published
-memory rate): each distinct block or row it reads once (the P passes re-read
-the same E ids, and about 81 K of the 125 K blocks are drawn at all), the ids,
-and each output once. Each line also gives the time of all of the call's
-copies at that rate, which the L2 cache lets a call beat.
+The kernel's function is every one of the P * E copies landing in its ring
+slot, and the result is the final rings (``ops/gather_ring.py``). Bounds
+count the bytes a call must move over 3.35 TB/s (the H100's published
+memory rate): each distinct block or row it reads once from device memory
+(the P passes re-read the same E ids, whose re-reads the 50 MB L2 cache may
+serve; about 81 K of the 125 K blocks are drawn at all), the ids, and each
+output once. Each printed line also gives the time of all of the call's
+reads and writes at that rate, which the L2 cache lets a call beat; that
+time is a yardstick, not a bound.
 
 The JAX tool's ``utils/memory.configure_malloc`` and ``configure_jax_cache``
 set the host heap and JAX's compilation cache; the port has no counterpart
@@ -39,13 +43,13 @@ import torch
 
 from ..ops.gather_ring import gather_ring
 from ..ops.scatter import fast_take
+from ..utils.profiling import HBM_BYTES_PER_S, time_ms
 
 N, F = 1_000_000, 256
 E = 131_072
 P = 16
 CHUNK = 2048
 DEPTHS = (2, 4, 8, 16, 24)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 
 
 def make_inputs(device, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
@@ -57,20 +61,6 @@ def make_inputs(device, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     return x3, torch.from_numpy(idx).to(device)
 
 
-def time_ms(fn, reps: int, warm: int = 2) -> float:
-    """Mean CUDA-event time of ``fn`` over ``reps`` calls after ``warm``."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def copy_bytes(depth: int, e: int = E, passes: int = P, chunk: int = CHUNK,
                f: int = F) -> int:
     """Bytes one probe call moves: every block copy read, each chunk's
@@ -80,9 +70,10 @@ def copy_bytes(depth: int, e: int = E, passes: int = P, chunk: int = CHUNK,
 
 def _rates(ms: float, ids: int, traffic: int, least: int) -> dict:
     """Rates of a call that gathers ``ids`` blocks (or rows) in ``ms``:
-    ``traffic`` is the bytes it moves, ``least`` the bytes it must move
-    (each distinct block it reads once, each output once), whose time at
-    the memory rate is the bound."""
+    ``traffic`` is the bytes of all its reads and writes
+    (``traffic_at_hbm_ms`` their time at the memory rate, a yardstick),
+    ``least`` the bytes it must move (each distinct block it reads once,
+    each output once), whose time at the memory rate is the bound."""
     s = ms * 1e-3
     return dict(ms=ms, M_ids_per_s=ids / s / 1e6, GB_per_s=traffic / s / 1e9,
                 traffic_bytes=traffic, traffic_at_hbm_ms=traffic / HBM_BYTES_PER_S * 1e3,
@@ -93,8 +84,8 @@ def probe(x3: torch.Tensor, idx: torch.Tensor, reps: int = 10, chunk: int = CHUN
           passes: int = P) -> list[dict]:
     """Time the kernel at each depth; one row of rates and bound per depth.
     The passes re-read the same blocks, so the bound counts each distinct
-    block once; ``traffic_at_hbm_ms`` is the time of every copy at the
-    memory rate."""
+    block once (a re-read may hit L2); ``traffic_at_hbm_ms`` is the time of
+    every copy at the memory rate."""
     e, f = int(idx.shape[0]), int(x3.shape[2])
     distinct = int(torch.unique(idx).numel())
     rows = []

@@ -200,9 +200,7 @@ def _flat_subgraph(data: GraphData, tb):
     layers take the scatter-free structured aggregation."""
     n_id = tb.flat_n_id()
     node_mask = tb.flat_node_mask()
-    edge_mask = (torch.cat(tb.masks[1:]) if len(tb.masks) > 1
-                 else torch.zeros((0,), dtype=torch.bool, device=n_id.device))
-    topo = TreeTopo(tb.batch_size, tb.fanouts, edge_mask)
+    topo = TreeTopo(tb.batch_size, tb.fanouts, tb.flat_edge_mask())
     x_sub = fast_take(data.x, n_id)
     x_sub = torch.where(node_mask[:, None], x_sub, torch.zeros_like(x_sub))
     return x_sub, n_id, node_mask, topo

@@ -76,6 +76,38 @@ def test_tree_parent_gather_and_flat_edges_match():
         ttree.TreeTopo(4, (3, 3), torch.from_numpy(mask), extra_src=torch.zeros(2))
 
 
+@pytest.mark.parametrize("fanouts", [(3, 2), ()])
+def test_flat_subgraph_topo_matches_flat_edges(fanouts):
+    """The flat view of a sampled tree: ``TreeBatch.flat_edges()`` equals the
+    JAX package's on the same tree, and the ``TreeTopo`` that
+    ``_flat_subgraph`` builds aggregates as the edge-list path on those
+    edges (atol 1e-6: f32 sums in another order)."""
+    from noise_gnn_tpu.ops.sampler import TreeBatch as JTreeBatch
+    from noise_gnn_tpu_torch.ops.sampler import sample_khop_tree
+    from noise_gnn_tpu_torch.ops.scatter import gather_scatter_mean
+
+    rng = np.random.default_rng(7)
+    n = 40
+    ei = rng.integers(0, n, (2, 150)).astype(np.int32)
+    x = rng.standard_normal((n, 6)).astype(np.float32)
+    data = TS.GraphData(x=torch.from_numpy(x), y=None, yhn=None, clean=None,
+                        csr=CSRGraph.from_coo(ei, n, torch.device("cpu")))
+    seed_mask = torch.from_numpy(np.arange(6) < 5)
+    tb = sample_khop_tree(torch.Generator().manual_seed(0), data.csr,
+                          torch.arange(6), fanouts, seed_mask)
+    t_ei, t_mask = tb.flat_edges()
+    j_ei, j_mask = JTreeBatch(tuple(jnp.asarray(v.numpy()) for v in tb.n_ids),
+                              tuple(jnp.asarray(m.numpy()) for m in tb.masks),
+                              fanouts, 6).flat_edges()
+    np.testing.assert_array_equal(t_ei.numpy(), np.asarray(j_ei))
+    np.testing.assert_array_equal(t_mask.numpy(), np.asarray(j_mask))
+    x_sub, _, _, topo = TS._flat_subgraph(data, tb)
+    np.testing.assert_array_equal(topo.edge_mask.numpy(), t_mask.numpy())
+    np.testing.assert_allclose(
+        ttree.tree_gather_scatter(x_sub, topo).numpy(),
+        gather_scatter_mean(x_sub, t_ei, x_sub.shape[0], t_mask).numpy(), atol=1e-6)
+
+
 # ------------------------------------------------------ consistency losses
 
 

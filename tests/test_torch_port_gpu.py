@@ -102,10 +102,13 @@ def test_main_path_small_on_cuda(cuda, tmp_path):
 @pytest.mark.parametrize("f", [4, 128, 256])
 def test_gather_ring_kernel_matches_plain(cuda, f):
     """Bit-equal final rings for depth == chunk, depth < chunk (slots
-    rewritten, the last copy kept) and depth 1, with a launch counted each."""
+    rewritten, the last copy kept) and depth 1 (``chip_smoke.GATHER_CASES``),
+    with a launch counted each."""
+    from chip_smoke import GATHER_CASES
+
     rng = np.random.default_rng(f)
     x3 = torch.from_numpy(rng.standard_normal((1000, 8, f)).astype(np.float32)).to(cuda)
-    for depth, chunk in ((1, 1), (1, 8), (2, 8), (3, 16), (16, 16), (7, 64), (24, 2048)):
+    for depth, chunk in GATHER_CASES:
         idx = torch.from_numpy(rng.integers(0, 1000, chunk * 5).astype(np.int32)).to(cuda)
         before = gr.launch_counts[depth]
         got = gr.gather_ring(x3, idx, depth, chunk, 3)
