@@ -7,17 +7,20 @@ Phases (any failure exits nonzero; the last stdout line is printed only
 when every phase passed):
 
 1. Device: ``nvidia-smi`` name and power limit, the torch device; build both
-   CUDA kernels with ``nvcc``, in parallel: the SpMM
+   CUDA kernels with ``nvcc``, one after the other: the SpMM
    (``noise_gnn_tpu_torch/csrc/spmm.cu``) and the gather ring
    (``noise_gnn_tpu_torch/csrc/gather_ring.cu``), and report the build time.
 2. Kernels against their plain versions on the card. SpMM: mean and sum, f32
-   and bf16 input and output, F in {100, 256, 512}, on a graph with isolated
-   rows (N not a multiple of any block size) and a power-law graph with hubs
-   of in-degree 1e5..2.5e5.
+   and bf16 input and output, F in {100, 128, 256, 512}, on a graph with
+   isolated rows (N not a multiple of any block size), a power-law graph with
+   hubs of in-degree 1e5..2.5e5, and a graph whose rows sit at S - 1, S,
+   S + 1 and 2S + 1 in-edges (S = ``spmm.SEG_EDGES``, the most edges one
+   segment takes) beside hubs of 1e5 and 2.5e5.
    Tolerance: |kernel - plain| <= max(1e-5, 4 sqrt(deg) 2^-24) * agg(|x|)
    per element (fp32 sums in another order: ~1e-5 relative to the
    summands' magnitude, widened by the probabilistic sqrt(deg) rounding
-   bound for hub rows), plus one bf16 ulp of the output for bf16 outputs.
+   bound for hub rows), plus one bf16 ulp of the output for bf16 outputs;
+   and two calls must give bit-equal outputs.
    Gather ring: bit-equal to ``gather_ring_reference`` (the kernel only
    copies) for F in {4, 128, 256} and (depth, chunk) pairs with depth ==
    chunk, depth < chunk and depth 1.
@@ -66,10 +69,13 @@ when every phase passed):
    The bound counts each distinct block read once from device memory (the
    passes' re-reads may hit L2), the ids, and the final rings written.
 6. The SpMM at the main paths' shapes on the full graphs (products F = 100,
-   256 and 512 bf16; arxiv F = 128, 512 and 256 f32; mean): the kernel held
-   against its plain version with the tolerance of phase 2, then timed with
-   CUDA events after warm-up beside its plain version and one library call
-   for the same function (``torch.sparse`` CSR @ dense) as a yardstick, and
+   256 and 512 bf16; arxiv F = 128, 512 and 256 f32; mean). For each graph
+   it logs the largest in-degrees and the segment schedule's size and pack
+   time on the card. At each shape the kernel is held against its plain
+   version with the tolerance of phase 2 and two of its calls must be
+   bit-equal; then it is timed with CUDA events after warm-up in turns with
+   one library call for the same function (``torch.sparse`` CSR @ dense, a
+   yardstick): kernel, library, kernel, library; then its plain version;
    beside the bound: max(bytes / 3.35 TB/s, adds / 67 TFLOP/s), counting x,
    indices and indptr read once and out written once.
 
@@ -81,7 +87,6 @@ checks, launches from the main paths), the ``nvidia-smi`` line and, last,
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import copy
 import json
 import math
@@ -105,7 +110,8 @@ from noise_gnn_tpu_torch.ops.leaf_agg import fused_leaf_table
 from noise_gnn_tpu_torch.tools import gather_probe
 from noise_gnn_tpu_torch.train import steps
 from noise_gnn_tpu_torch.utils.config import load_config
-from noise_gnn_tpu_torch.utils.profiling import FP32_OPS_PER_S, HBM_BYTES_PER_S, time_ms
+from noise_gnn_tpu_torch.utils.profiling import (FP32_OPS_PER_S, HBM_BYTES_PER_S, time_ms,
+                                                  time_turns)
 
 CONFIG = "configs/config_products.yml"
 CTP_CONFIG = "configs/config_ctp.yml"
@@ -153,6 +159,30 @@ def hub_graph(rng):
     return n, src, dst
 
 
+def boundary_graph(rng):
+    """Rows at S - 1, S, S + 1 and 2S + 1 in-edges (1000 of each) beside two
+    hubs of 1e5 and 2.5e5 and a power-law-ish tail."""
+    n, s = 150_001, spmm.SEG_EDGES
+    sizes = np.repeat([s - 1, s, s + 1, 2 * s + 1], 1000)
+    rows = np.repeat(np.arange(10, 10 + sizes.shape[0]), sizes)
+    hubs = np.repeat(np.asarray([3, n - 2]), [100_000, 250_000])
+    tail = (n * rng.random(2_000_000) ** 3).astype(np.int64)
+    tail = tail[(tail < 10) | (tail >= 10 + sizes.shape[0])]  # the sized rows stay exact
+    dst = np.concatenate([rows, hubs, tail])
+    src = rng.integers(0, n, dst.shape[0])
+    return n, src, dst
+
+
+def degree_profile(indptr: torch.Tensor) -> dict:
+    """The five largest in-degrees, the median and p99 (of up to 2^20
+    sampled rows) and the count of rows with none."""
+    deg = (indptr[1:] - indptr[:-1]).float()
+    q = torch.quantile(deg[torch.randperm(deg.numel(), device=deg.device)[:1 << 20]],
+                       torch.tensor([0.5, 0.99], device=deg.device))
+    return dict(top5=[int(v) for v in torch.topk(deg, 5).values.tolist()],
+                median=float(q[0]), p99=float(q[1]), isolated=int((deg == 0).sum()))
+
+
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     e = torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -126)))
     return torch.pow(2.0, e - 7)
@@ -187,25 +217,29 @@ def compare(got: torch.Tensor, ref: torch.Tensor, mag: torch.Tensor, rtol: torch
 
 def log_case(case: dict) -> None:
     log("    {graph} F={F} {x}->{out} {m}: max abs err {max_abs_err:.3e}, "
-        "max err/agg|x| {max_err_rel_to_magnitude:.3e}, err/tol {max_err_over_tol:.3f} "
-        "{v}".format(m="mean" if case["mean"] else "sum", v="ok" if case["ok"] else "FAIL",
-                     **case))
+        "max err/agg|x| {max_err_rel_to_magnitude:.3e}, err/tol {max_err_over_tol:.3f}, "
+        "repeat bit-equal {repeat_equal} {v}".format(
+            m="mean" if case["mean"] else "sum", v="ok" if case["ok"] else "FAIL", **case))
 
 
 def check_kernel(dev) -> list[dict]:
     rng = np.random.default_rng(0)
     cases = []
-    for gname, make in (("isolated rows", isolated_graph), ("power-law hubs", hub_graph)):
+    for gname, make in (("isolated rows", isolated_graph), ("power-law hubs", hub_graph),
+                        ("segment boundaries", boundary_graph)):
         n, src, dst = make(rng)
         indptr, indices = coo_to_csr(src.astype(np.int32), dst.astype(np.int32), n)
         csr = CSRGraph(torch.from_numpy(indptr).to(dev), torch.from_numpy(indices).to(dev), n)
         op = spmm.Spmm.from_csr(csr)
         rtol = sum_rtol(csr.indptr)
         deg = csr.indptr[1:] - csr.indptr[:-1]
+        sch = op.schedule
         log(f"  graph '{gname}': N={n} E={indices.shape[0]} max in-degree "
-            f"{int(deg.max())} isolated rows {int((deg == 0).sum())}")
+            f"{int(deg.max())} isolated rows {int((deg == 0).sum())}, "
+            f"{sch.seg_len.shape[0]} segments of <= {spmm.SEG_EDGES} edges, "
+            f"{sch.comb_row.shape[0]} rows split into {sch.num_partials}")
         gen = torch.Generator(device=dev).manual_seed(1)
-        for f in (100, 256, 512):
+        for f in (100, 128, 256, 512):
             x32 = torch.randn((n, f), generator=gen, device=dev)
             for x_dtype in (torch.float32, torch.bfloat16):
                 x = x32.to(x_dtype)
@@ -218,6 +252,8 @@ def check_kernel(dev) -> list[dict]:
                         case = dict(graph=gname, F=f, x=str(x_dtype)[6:],
                                     out=str(out_dtype)[6:], mean=mean)
                         case.update(compare(got, ref, mag, rtol))
+                        repeat_equal = torch.equal(got, op(x, mean=mean, out_dtype=out_dtype))
+                        case.update(repeat_equal=repeat_equal, ok=case["ok"] and repeat_equal)
                         cases.append(case)
                         log_case(case)
         del csr, op, x32, x, ref, mag, got
@@ -529,7 +565,18 @@ def time_shapes(dev, config: str, shapes, dtype: torch.dtype) -> list[dict]:
     g = load_network(cfg)
     csr = g.csr(dev)
     n, e = g.num_nodes, int(csr.indices.shape[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     op = spmm.Spmm.from_csr(csr)
+    torch.cuda.synchronize()
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    sch = op.schedule
+    graph = dict(in_degree=degree_profile(csr.indptr), pack_ms=pack_ms,
+                 segments=int(sch.seg_len.shape[0]), seg_edges=spmm.SEG_EDGES,
+                 split_rows=int(sch.comb_row.shape[0]), partials=sch.num_partials)
+    log(f"  {g.name}: N={n} E={e}, in-degree {graph['in_degree']}; {graph['segments']} "
+        f"segments of <= {spmm.SEG_EDGES} edges, {graph['split_rows']} rows split into "
+        f"{graph['partials']}; Spmm pack on the card {pack_ms:.1f} ms")
     rtol = sum_rtol(csr.indptr)
     deg = (csr.indptr[1:] - csr.indptr[:-1])
     vals = (1.0 / deg.clamp(min=1).float()).repeat_interleave(deg).to(dtype)
@@ -543,28 +590,35 @@ def time_shapes(dev, config: str, shapes, dtype: torch.dtype) -> list[dict]:
             x = torch.from_numpy(g.x).to(dev).to(dtype)  # the real leaf input
         else:
             x = torch.randn((n, f), generator=gen, device=dev).to(dtype)
-        k_ms = time_ms(lambda: op(x, mean=True, out_dtype=dtype), reps=10)
-        p_ms = time_ms(lambda: spmm.spmm_reference(csr.indptr, csr.indices, x, True, dtype),
-                       reps=2, warm=1)
-        l_ms = time_ms(lambda: lib_a @ x, reps=10)
+        got = op(x, mean=True, out_dtype=dtype)
         case = dict(graph=f"{g.name} (full)", F=f, x=tname, out=tname, mean=True)
         case.update(compare(
-            op(x, mean=True, out_dtype=dtype),
-            spmm.spmm_reference(csr.indptr, csr.indices, x, True, torch.float32),
+            got, spmm.spmm_reference(csr.indptr, csr.indices, x, True, torch.float32),
             spmm.spmm_reference(csr.indptr, csr.indices, x.abs(), True, torch.float32),
             rtol))
+        repeat_equal = torch.equal(got, op(x, mean=True, out_dtype=dtype))
+        case.update(repeat_equal=repeat_equal, ok=case["ok"] and repeat_equal)
+        del got
         log_case(case)
+        turns = time_turns({"kernel": lambda: op(x, mean=True, out_dtype=dtype),
+                            "library": lambda: lib_a @ x}, turns=2, reps=10)
+        k_ms, l_ms = (sum(turns[k]) / len(turns[k]) for k in ("kernel", "library"))
+        p_ms = time_ms(lambda: spmm.spmm_reference(csr.indptr, csr.indices, x, True, dtype),
+                       reps=2, warm=1)
         nbytes = n * f * itemsize + e * 4 + (n + 1) * 8 + n * f * itemsize
         nops = e * f + n * f
         b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         row = dict(shape=name, F=f, N=n, E=e, dtype=tname, ms=k_ms, plain_ms=p_ms,
                    library_ms=l_ms, library=f"torch.sparse CSR @ dense ({tname})",
+                   turns_ms=turns, edge_row_bytes=e * f * itemsize, graph_stats=graph,
                    bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms else "operations",
                    bytes=nbytes, ops=nops, check=case)
         rows.append(row)
-        log(f"  {name} F={f} {tname}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
-            f"{l_ms:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
-            f"{nbytes / 1e9:.3f} GB)")
+        log(f"  {name} F={f} {tname}: kernel {k_ms:.3f} ms (turns "
+            f"{turns['kernel']}), "
+            f"library {l_ms:.3f} ms (turns {turns['library']}), plain {p_ms:.3f} ms, bound "
+            f"{row['bound_ms']:.3f} ms ({row['bound_by']}, {nbytes / 1e9:.3f} GB); one source "
+            f"row per edge would be {e * f * itemsize / 1e9:.3f} GB")
         del x
         torch.cuda.empty_cache()
         if not case["ok"]:
@@ -593,9 +647,7 @@ def run(out: Path) -> int:
     log(f"[1] device: {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"{kind} x{count}")
     t0 = time.perf_counter()
-    # a fresh checkout has nothing built: one nvcc per source, started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (spmm, gather_ring)))
+    libs = [spmm.build(), gather_ring.build()]  # a fresh checkout has nothing built
     build_s = time.perf_counter() - t0
     log(f"    built {libs[0].name} from {SOURCE} and {libs[1].name} from {GATHER_SOURCE} "
         f"in {build_s:.1f} s")

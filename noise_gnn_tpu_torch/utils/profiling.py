@@ -1,5 +1,5 @@
 """Throughput accounting shared with the JAX package's metrics, and the
-CUDA-event timer and published H100 rates that the card's scripts
+CUDA-event timers and published H100 rates that the card's scripts
 (``tools/gather_probe.py``, ``chip_smoke.py``) time and bound kernels with."""
 
 from __future__ import annotations
@@ -32,3 +32,14 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_turns(fns: dict, turns: int, reps: int, warm: int = 2) -> dict[str, list[float]]:
+    """``time_ms`` of each named function in turns: every function once per
+    turn, ``turns`` turns, so that a drift of the card's clock or of its
+    neighbours falls on all of them alike. Returns each name's times."""
+    times: dict[str, list[float]] = {name: [] for name in fns}
+    for _ in range(turns):
+        for name, fn in fns.items():
+            times[name].append(time_ms(fn, reps, warm))
+    return times

@@ -32,46 +32,95 @@ def _bf16_ulp(v):
     return torch.pow(2.0, e - 7)
 
 
+def _check_launches(op, csr, x, f):
+    """mean/sum x f32/bf16 out: each call one counted launch (split rows
+    take a second kernel, still one count), bit-equal to its repeat, and
+    within max(1e-5, 4 sqrt(deg) 2^-24) x agg(|x|) of the plain version
+    (fp32 sums in another order), plus one bf16 ulp for bf16 output."""
+    deg = (csr.indptr[1:] - csr.indptr[:-1]).float()[:, None]
+    rtol = torch.clamp(4 * deg.clamp(min=1).sqrt() * 2.0 ** -24, min=1e-5)
+    for mean in (True, False):
+        want = spmm.spmm_reference(csr.indptr, csr.indices, x, mean, torch.float32)
+        mag = spmm.spmm_reference(csr.indptr, csr.indices, x.abs(), mean, torch.float32)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            before = spmm.launch_counts[f]
+            got = op(x, mean=mean, out_dtype=out_dtype)
+            again = op(x, mean=mean, out_dtype=out_dtype)
+            assert spmm.launch_counts[f] == before + 2 and got.dtype == out_dtype
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            err = (got.float() - want).abs()
+            tol = rtol * mag
+            if out_dtype == torch.bfloat16:
+                tol = tol + _bf16_ulp(want)
+            assert bool((err <= tol).all()), float((err / tol.clamp(min=1e-30)).max())
+            assert float(got[deg[:, 0] == 0].abs().max()) == 0.0  # isolated rows
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("f", [100, 256, 512])
+@pytest.mark.parametrize("f", [100, 128, 256, 512])
 def test_cuda_kernel_matches_plain(cuda, f):
-    """mean/sum x f32/bf16 in x f32/bf16 out, isolated rows and 2e4-degree
-    hubs; tolerance: max(1e-5, 4 sqrt(deg) 2^-24) x agg(|x|) (fp32 sums in
-    another order), plus one bf16 ulp for bf16 output."""
+    """f32/bf16 in, isolated rows and 2e4-degree hubs (split into segments
+    of ``SEG_EDGES``); see ``_check_launches``."""
     rng = np.random.default_rng(f)
     n = 20011
     dst = np.concatenate([rng.integers(0, n - 500, 200_000), np.repeat([17, 4001], 20_000)])
     src = rng.integers(0, n, dst.shape[0])
     csr = CSRGraph.from_coo(np.stack([src, dst]).astype(np.int32), n, cuda)
     op = spmm.Spmm.from_csr(csr)
-    deg = (csr.indptr[1:] - csr.indptr[:-1]).float()[:, None]
-    rtol = torch.clamp(4 * deg.clamp(min=1).sqrt() * 2.0 ** -24, min=1e-5)
+    assert op.schedule.num_partials > 0
     gen = torch.Generator(device=cuda).manual_seed(f)
     for x_dtype in (torch.float32, torch.bfloat16):
-        x = torch.randn((n, f), generator=gen, device=cuda).to(x_dtype)
-        for mean in (True, False):
-            want = spmm.spmm_reference(csr.indptr, csr.indices, x, mean, torch.float32)
-            mag = spmm.spmm_reference(csr.indptr, csr.indices, x.abs(), mean, torch.float32)
-            for out_dtype in (torch.float32, torch.bfloat16):
-                before = spmm.launch_counts[f]
-                got = op(x, mean=mean, out_dtype=out_dtype)
-                assert spmm.launch_counts[f] == before + 1 and got.dtype == out_dtype
-                torch.cuda.synchronize()
-                err = (got.float() - want).abs()
-                tol = rtol * mag
-                if out_dtype == torch.bfloat16:
-                    tol = tol + _bf16_ulp(want)
-                assert bool((err <= tol).all()), float((err / tol.clamp(min=1e-30)).max())
-                assert float(got[-500:].abs().max()) == 0.0  # isolated rows
+        _check_launches(op, csr, torch.randn((n, f), generator=gen, device=cuda).to(x_dtype), f)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_segment_boundaries(cuda):
+    """Rows of exactly S - 1, S, S + 1 and 2S + 1 in-edges and a hub of 40S,
+    S = SEG_EDGES."""
+    s = spmm.SEG_EDGES
+    rng = np.random.default_rng(s)
+    n = 5003
+    dst = np.concatenate([rng.integers(10, n - 100, 40_000),
+                          np.repeat([5, 6, 7, 8, 9], [s - 1, s, s + 1, 2 * s + 1, 40 * s])])
+    src = rng.integers(0, n, dst.shape[0])
+    csr = CSRGraph.from_coo(np.stack([src, dst]).astype(np.int32), n, cuda)
+    op = spmm.Spmm.from_csr(csr)
+    split = set(op.schedule.comb_row.tolist())
+    assert {7, 8, 9} <= split and not {5, 6} & split
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    for f in (100, 128, 256, 512):
+        _check_launches(op, csr, torch.randn((n, f), generator=gen, device=cuda).to(
+            torch.bfloat16 if f == 100 else torch.float32), f)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_column_slices(cuda):
+    """A source table over four times the L2 whose 256-byte column slices
+    fit in it (120,000 x 512 f32, 246 MB), which the kernel runs slice by
+    slice, and one a quarter as wide (61 MB), which it runs whole."""
+    rng = np.random.default_rng(7)
+    n, f = 120_000, 512
+    dst = np.concatenate([rng.integers(0, n - 50, 1_500_000), np.repeat([3], 3000)])
+    src = rng.integers(0, n, dst.shape[0])
+    csr = CSRGraph.from_coo(np.stack([src, dst]).astype(np.int32), n, cuda)
+    op = spmm.Spmm.from_csr(csr)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for width in (f, f // 4):
+        _check_launches(op, csr, torch.randn((n, width), generator=gen, device=cuda), width)
 
 
 @pytest.mark.gpu
 def test_cuda_kernel_odd_width_and_views(cuda):
-    """F not a multiple of any vector width, and a misaligned input."""
+    """F not a multiple of any vector width, and a misaligned input; one
+    row of 300 in-edges, which the kernel splits."""
     n = 1001
     rng = np.random.default_rng(3)
-    csr = CSRGraph.from_coo(rng.integers(0, n, (2, 30_000)).astype(np.int32), n, cuda)
+    dst = np.concatenate([rng.integers(0, n, 30_000), np.full(300, 500)])
+    src = rng.integers(0, n, dst.shape[0])
+    csr = CSRGraph.from_coo(np.stack([src, dst]).astype(np.int32), n, cuda)
     op = spmm.Spmm.from_csr(csr)
+    assert 500 in op.schedule.comb_row.tolist()
     base = torch.randn((n * 37 + 1,), device=cuda)
     x = base[1:].view(n, 37)  # contiguous, 4-byte but not 16-byte aligned
     want = spmm.spmm_reference(csr.indptr, csr.indices, x, True, torch.float32)

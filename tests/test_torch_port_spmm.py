@@ -2,8 +2,11 @@
 
 On the CPU the ``Spmm`` operator runs its plain version; it is held against
 the Pallas kernel in interpret mode (as tests/test_pallas_spmm.py runs it)
-and against ``gather_scatter_mean``/``_sum``. The CUDA kernel itself is held
-against the plain version in ``tests/test_torch_port_gpu.py``.
+and against ``gather_scatter_mean``/``_sum``. The kernel's segment schedule
+(``segment_schedule``) is checked here, and its arithmetic (per-segment
+partials, combined in segment order) is held against the plain version in
+plain torch. The CUDA kernel itself is held against the plain version in
+``tests/test_torch_port_gpu.py``.
 """
 
 import importlib.util
@@ -162,6 +165,97 @@ def test_chip_smoke_tolerance(out_dtype):
     assert not res["ok"] and res["max_err_over_tol"] > 1.0
 
 
+def boundary_graph(s, n=60, seed=11):
+    """Rows of 0, S - 1, S, S + 1, 2S + 1 and 40S in-edges (rows 0-5) among
+    random ones; rows n - 5 .. n - 1 get none either."""
+    rng = np.random.default_rng(seed)
+    dst = np.concatenate([np.repeat([1, 2, 3, 4, 5], [s - 1, s, s + 1, 2 * s + 1, 40 * s]),
+                          rng.integers(6, n - 5, 30 * n)])
+    src = rng.integers(0, n, dst.shape[0])
+    return np.stack([src, dst]).astype(np.int32)
+
+
+@pytest.mark.parametrize("seg_edges", [1, 8, 64])
+def test_segment_schedule_covers_edges(seg_edges):
+    """Every edge in exactly one segment, in CSR order; no segment over S;
+    rows of 0 or S edges one segment, rows of S + 1 two; split rows own
+    consecutive partial slots in segment order; longest segments first,
+    CSR order among equals."""
+    s, n = seg_edges, 60
+    indptr, indices = _csr_of(boundary_graph(s, n), n)
+    sch = tspmm.segment_schedule(indptr, s)
+    start, length, dst = sch.seg_start, sch.seg_len.long(), sch.seg_dst.long()
+    assert start.dtype == torch.int64 and sch.seg_len.dtype == sch.seg_dst.dtype == torch.int32
+    assert int(length.max()) <= s and int(length.sum()) == indices.shape[0]
+    full = torch.argsort(start[length > 0])  # empty segments (isolated rows) aside
+    starts, ends = start[length > 0][full], (start + length)[length > 0][full]
+    assert int(starts[0]) == 0 and torch.equal(starts[1:], ends[:-1])
+    # longest first, CSR order among segments of one length
+    assert bool((length[:-1] >= length[1:]).all())
+    same = length[:-1] == length[1:]
+    assert bool((start[:-1][same] <= start[1:][same]).all())
+    deg = indptr[1:] - indptr[:-1]
+    # each isolated row (row 0 and the last 5) is one empty segment, in order
+    assert torch.equal(dst[length == 0], torch.nonzero(deg == 0).squeeze(1))
+    direct = dst >= 0
+    rows = dst[direct]
+    assert torch.equal(start[direct], indptr[rows]) and torch.equal(length[direct], deg[rows])
+    split_rows = sch.comb_row.long()
+    assert sorted(rows.tolist() + split_rows.tolist()) == list(range(n))
+    assert torch.equal(split_rows, torch.nonzero(deg > s).squeeze(1))
+    assert {0, 2} <= set(rows.tolist()) and 3 in split_rows.tolist()
+    # split row j: slots comb_ptr[j] .. comb_ptr[j + 1] cover its edges in order
+    slot_start = torch.empty(sch.num_partials, dtype=torch.int64)
+    slot_start[-1 - dst[~direct]] = start[~direct]
+    for j, r in enumerate(split_rows.tolist()):
+        p0, p1 = int(sch.comb_ptr[j]), int(sch.comb_ptr[j + 1])
+        want = torch.arange(int(indptr[r]), int(indptr[r + 1]), s)
+        assert p1 - p0 == (int(deg[r]) + s - 1) // s and torch.equal(slot_start[p0:p1], want)
+    assert int(sch.comb_ptr[-1]) == sch.num_partials
+
+
+def schedule_eval(sch, indptr, indices, x, mean):
+    """The kernel's arithmetic in plain torch: one fp32 sum per segment;
+    a row of one segment is that sum, a split row the sum of its partials
+    in slot (= segment) order; then scaled."""
+    n, f = indptr.shape[0] - 1, x.shape[1]
+    nseg = sch.seg_len.shape[0]
+    length = sch.seg_len.long()
+    offs = torch.cumsum(length, 0) - length
+    edge = (sch.seg_start.repeat_interleave(length)
+            + torch.arange(int(length.sum())) - offs.repeat_interleave(length))
+    sums = torch.zeros(nseg, f).index_add_(
+        0, torch.arange(nseg).repeat_interleave(length), x[indices[edge].long()].float())
+    deg = (indptr[1:] - indptr[:-1]).float()
+    scale = 1.0 / deg.clamp(min=1) if mean else torch.ones(n)
+    out = torch.zeros(n, f)
+    dst = sch.seg_dst.long()
+    direct = dst >= 0
+    out[dst[direct]] = sums[direct] * scale[dst[direct], None]
+    partial = torch.empty(sch.num_partials, f)
+    partial[-1 - dst[~direct]] = sums[~direct]
+    for j, r in enumerate(sch.comb_row.tolist()):
+        acc = torch.zeros(f)
+        for p in range(int(sch.comb_ptr[j]), int(sch.comb_ptr[j + 1])):
+            acc = acc + partial[p]
+        out[r] = acc * scale[r]
+    return out
+
+
+@pytest.mark.parametrize("mean", [True, False])
+def test_schedule_arithmetic_matches_plain(mean):
+    """Hubs of 1500 in-edges, ~190 segments of S = 8 each."""
+    n = 700
+    ei = hub_graph(n)
+    indptr, indices = _csr_of(ei, n)
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal((n, 40)).astype(np.float32))
+    sch = tspmm.segment_schedule(indptr, 8)
+    assert sch.num_partials >= 2 * 1500 // 8
+    got = schedule_eval(sch, indptr, indices, x, mean)
+    want = tspmm.spmm_reference(indptr, indices, x, mean, torch.float32)
+    assert_agg_close(got.numpy(), want.numpy(), x.numpy(), ei, n, mean)
+
+
 def test_wrapper_checks():
     n = 50
     op = spmm_op(hub_graph(n, 200, hubs=(1,), hub_deg=10, isolated=5), n)
@@ -173,6 +267,8 @@ def test_wrapper_checks():
         op(torch.zeros(n, 8), out_dtype=torch.float16)
     with pytest.raises(ValueError):
         tspmm.Spmm(torch.tensor([0, 1]), torch.tensor([5], dtype=torch.int32))
+    with pytest.raises(ValueError, match="seg_edges"):
+        tspmm.segment_schedule(op.indptr, 0)
     tspmm.launch_counts.clear()
     op(torch.zeros(n, 8))
     assert sum(tspmm.launch_counts.values()) == 0  # the plain version never counts
