@@ -7,7 +7,7 @@ Phases (any failure exits nonzero; the last stdout line is printed only
 when every phase passed):
 
 1. Device: ``nvidia-smi`` name and power limit, the torch device; build both
-   CUDA kernels with ``nvcc``, one after the other: the SpMM
+   CUDA kernels with ``nvcc``, both started together: the SpMM
    (``noise_gnn_tpu_torch/csrc/spmm.cu``) and the gather ring
    (``noise_gnn_tpu_torch/csrc/gather_ring.cu``), and report the build time.
 2. Kernels against their plain versions on the card. SpMM: mean and sum, f32
@@ -22,8 +22,13 @@ when every phase passed):
    bound for hub rows), plus one bf16 ulp of the output for bf16 outputs;
    and two calls must give bit-equal outputs.
    Gather ring: bit-equal to ``gather_ring_reference`` (the kernel only
-   copies) for F in {4, 128, 256} and (depth, chunk) pairs with depth ==
-   chunk, depth < chunk and depth 1.
+   copies) for F in {4, 128, 256}, (depth, chunk) pairs with depth ==
+   chunk, depth < chunk and depth 1, and passes in {1, 2, 3, 4, 8, 16};
+   those grids fit on the card at once, so the wrapper's rule runs them
+   without clusters. Then the same passes at depth 24, F = 256 (one block
+   an SM) on grids of over twice the card's SMs, where the rule picks
+   clusters: C = 1, 2, 1, 4, 8, 8. Every cluster size it can choose must
+   have been launched, each case bit-equal.
    Then the main paths' functions on small inputs, on the card against the
    CPU (which the CPU tests hold against the JAX package): one co-teaching
    epoch of 4 steps at the products widths and the pair eval, and one CTP
@@ -65,7 +70,10 @@ when every phase passed):
    2048, depth 2, 4, 8, 16, 24) with the gather-ring counts reset before
    and read after; then, at the same shapes, the kernel's rings bit-equal
    to the plain version's at every depth, and the plain version (which,
-   like the kernel, makes all P x E copies: one ``index_select``) timed.
+   like the kernel, makes all P x E copies: one ``index_select``) timed;
+   the rings of a second call must be bit-equal to the first's. Each depth
+   logs the cluster size C the wrapper's rule chose and how many clusters
+   of C the card holds at once.
    The bound counts each distinct block read once from device memory (the
    passes' re-reads may hit L2), the ids, and the final rings written.
 6. The SpMM at the main paths' shapes on the full graphs (products F = 100,
@@ -94,6 +102,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -126,6 +135,9 @@ CTP_SHAPES = (("arxiv leaf table", 128), ("arxiv eval pair", 512), ("arxiv load 
 # depth < chunk (slots rewritten, the last copy kept); also run by
 # tests/test_torch_port_gpu.py
 GATHER_CASES = ((1, 1), (1, 8), (2, 8), (3, 16), (16, 16), (7, 64), (24, 2048))
+# passes of the gather ring's small cases: C = 1, 2, 1 (3 is odd), 4, 8, 8
+# where the rule clusters
+GATHER_PASSES = (1, 2, 3, 4, 8, 16)
 
 
 def log(msg: str) -> None:
@@ -328,21 +340,49 @@ def check_small_path(dev) -> dict:
 def check_gather_small(dev) -> list[dict]:
     """The gather ring against its plain version on small inputs: bit-equal
     (the kernel only copies), for depth == chunk, depth < chunk (slots
-    rewritten, the last copy kept) and depth 1."""
+    rewritten, the last copy kept) and depth 1, at every passes of
+    ``GATHER_PASSES``; then at those passes on grids too large to fit on the
+    card at once, so that the rule launches every cluster size it can
+    choose."""
     rng = np.random.default_rng(5)
     cases = []
+
+    def case(x3, idx, depth, chunk, passes):
+        got = gather_ring.gather_ring(x3, idx, depth, chunk, passes)
+        want = gather_ring.gather_ring_reference(x3, idx, depth, chunk, passes)
+        csize, _ = gather_ring.plan(depth, chunk, int(x3.shape[2]), passes,
+                                    idx.shape[0] // chunk, dev)
+        cases.append(dict(F=int(x3.shape[2]), depth=depth, chunk=chunk, passes=passes,
+                          nchunks=idx.shape[0] // chunk, cluster=csize,
+                          equal=bool(torch.equal(got, want))))
+
     for f in (4, 128, 256):
         x3 = torch.from_numpy(rng.standard_normal((1000, 8, f)).astype(np.float32)).to(dev)
         for depth, chunk in GATHER_CASES:
             idx = torch.from_numpy(rng.integers(0, 1000, chunk * 5).astype(np.int32)).to(dev)
-            got = gather_ring.gather_ring(x3, idx, depth, chunk, 3)
-            want = gather_ring.gather_ring_reference(x3, idx, depth, chunk, 3)
-            cases.append(dict(F=f, depth=depth, chunk=chunk, equal=bool(torch.equal(got, want))))
+            for passes in GATHER_PASSES:
+                case(x3, idx, depth, chunk, passes)
+    x3 = torch.from_numpy(rng.standard_normal((1000, 8, 256)).astype(np.float32)).to(dev)
+    for passes in GATHER_PASSES:
+        nchunks = wave_chunks(passes, torch.cuda.get_device_properties(dev).multi_processor_count)
+        idx = torch.from_numpy(rng.integers(0, 1000, 64 * nchunks).astype(np.int32)).to(dev)
+        case(x3, idx, 24, 64, passes)
     bad = [c for c in cases if not c["equal"]]
-    log(f"  gather ring: {len(cases) - len(bad)} of {len(cases)} small cases bit-equal")
+    chosen = sorted({c["cluster"] for c in cases})
+    log(f"  gather ring: {len(cases) - len(bad)} of {len(cases)} small cases bit-equal; "
+        f"cluster sizes launched {chosen}")
     if bad:
         raise RuntimeError(f"gather ring disagrees with its plain version: {bad}")
+    if chosen != sorted(gather_ring.CLUSTER_SIZES):
+        raise RuntimeError(f"the small cases launched cluster sizes {chosen}, not "
+                           f"{sorted(gather_ring.CLUSTER_SIZES)}")
     return cases
+
+
+def wave_chunks(passes: int, sms: int) -> int:
+    """Chunks for a grid of ``passes`` passes over twice ``sms`` blocks: at
+    one block an SM, more than the card holds at once."""
+    return -(-2 * sms // passes)
 
 
 def check_small_ctp(dev) -> dict:
@@ -524,8 +564,8 @@ def run_ctp_path(out: Path) -> dict:
 def run_gather_path(dev) -> dict:
     """The probe tool's path with the gather-ring counts reset before and
     read after, then the kernel's rings held bit-equal to the plain
-    version's at every depth at the same shapes, and the plain version
-    timed."""
+    version's and to a second call's at every depth at the same shapes, and
+    the plain version timed."""
     gather_ring.launch_counts.clear()
     res = gather_probe.run(dev)
     torch.cuda.synchronize()
@@ -537,15 +577,18 @@ def run_gather_path(dev) -> dict:
         d = row["depth"]
         args = (x3, idx, d, gather_probe.CHUNK, gather_probe.P)
         got = gather_ring.gather_ring(*args)
+        again = gather_ring.gather_ring(*args)
         want = gather_ring.gather_ring_reference(*args)
-        row.update(equal=bool(torch.equal(got, want)),
+        row.update(equal=bool(torch.equal(got, want)), repeat_equal=bool(torch.equal(got, again)),
                    max_abs_err=float((got - want).abs().max()),
                    plain_ms=time_ms(lambda: gather_ring.gather_ring_reference(*args), reps=5),
                    launches=counts.get(d, 0))
-        log(f"  depth {d}: rings bit-equal to the plain version: {row['equal']}, plain "
-            f"{row['plain_ms']:.3f} ms, launches on the probe path {row['launches']}")
-        del got, want
-        if not row["equal"] or row["launches"] == 0:
+        log(f"  depth {d}: C = {row['cluster']} ({row['active_clusters']} clusters at once), "
+            f"rings bit-equal to the plain version: {row['equal']}, to a second call: "
+            f"{row['repeat_equal']}, plain {row['plain_ms']:.3f} ms, launches on the probe "
+            f"path {row['launches']}")
+        del got, again, want
+        if not (row["equal"] and row["repeat_equal"]) or row["launches"] == 0:
             raise RuntimeError(f"gather ring at depth {d}: {row}")
     del x3, idx
     torch.cuda.empty_cache()
@@ -647,7 +690,8 @@ def run(out: Path) -> int:
     log(f"[1] device: {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"{kind} x{count}")
     t0 = time.perf_counter()
-    libs = [spmm.build(), gather_ring.build()]  # a fresh checkout has nothing built
+    with ThreadPoolExecutor(2) as pool:  # a fresh checkout has nothing built
+        libs = list(pool.map(lambda build: build(), (spmm.build, gather_ring.build)))
     build_s = time.perf_counter() - t0
     log(f"    built {libs[0].name} from {SOURCE} and {libs[1].name} from {GATHER_SOURCE} "
         f"in {build_s:.1f} s")
@@ -690,7 +734,8 @@ def run(out: Path) -> int:
             route="cuda", source=GATHER_SOURCE, replaces=GATHER_REPLACES,
             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=block_sel["ms"], library_rows_ms=row_sel["ms"]))
+            library_ms=block_sel["ms"], library_rows_ms=row_sel["ms"], cluster=r["cluster"],
+            active_clusters=r["active_clusters"]))
     report = dict(nvidia_smi=smi, device=kind, count=count, build_s=build_s,
                   checks=cases, gather_checks=gather_cases, small_path=small,
                   small_ctp=small_ctp, main_path=main_rep, ctp_path=ctp_rep,

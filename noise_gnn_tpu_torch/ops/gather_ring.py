@@ -17,7 +17,11 @@ kernel returns.
 * :func:`gather_ring` launches the kernel on a CUDA tensor (and counts the
   launch in ``launch_counts``) and raises on any other device, the CPU
   included: it is a probe of the card's gather throughput, which a plain
-  version on the host would not measure.
+  version on the host would not measure. The kernel runs the grid
+  chunk-major in thread-block clusters of ``C`` consecutive passes of one
+  chunk, which share every block copy by TMA multicast
+  (:func:`block_coords` mirrors its index arithmetic); :func:`cluster_size`
+  is the one rule that picks ``C``, and :func:`plan` applies it on the card.
 * :func:`gather_ring_reference` makes the same ``passes * E`` copies with
   one plain ``index_select`` and keeps each slot's last, on any device; the
   tests and ``chip_smoke.py`` hold the kernel against it.
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import weakref
 from pathlib import Path
 
 import torch
@@ -39,12 +44,18 @@ from .cuda_build import CSRC, build_library
 
 _SRC = CSRC / "gather_ring.cu"
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+CLUSTER_SIZES = (8, 4, 2, 1)  # clusters of 16 measured slower than 8
 
 # Kernel launches by ring depth, counted where the wrapper launches the
 # kernel and nowhere else (the plain version never counts).
 launch_counts: collections.Counter = collections.Counter()
 
 _lib = None
+_plans: dict = {}
+# The last ids found in range: (weak reference, version, data_ptr, numel,
+# n_blocks). The range check syncs with the host, so an unchanged tensor is
+# checked once; an in-place change bumps its version and is checked again.
+_checked: tuple | None = None
 
 
 def build() -> Path:
@@ -57,10 +68,12 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ngt_gather_ring.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+        lib.ngt_gather_ring.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
         lib.ngt_gather_ring.restype = ctypes.c_int
-        lib.ngt_gather_ring_smem.argtypes = [i32, i32, i32]
+        lib.ngt_gather_ring_smem.argtypes = [i32, i32, i32, i32]
         lib.ngt_gather_ring_smem.restype = ctypes.c_longlong
+        lib.ngt_gather_ring_active_clusters.argtypes = [i32, i32, i32, i32, i32]
+        lib.ngt_gather_ring_active_clusters.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -82,9 +95,75 @@ def _check(x3: torch.Tensor, idx: torch.Tensor, depth: int, chunk: int, passes: 
     return idx.shape[0] // chunk
 
 
+def _check_range(idx: torch.Tensor, n_blocks: int) -> None:
+    """Raise unless every id is in ``[0, n_blocks)``; skips the check (and
+    its host sync) for the same tensor, unchanged, as last time."""
+    global _checked
+    key = (idx._version, idx.data_ptr(), idx.numel(), n_blocks)
+    if _checked is not None and _checked[0]() is idx and _checked[1:] == key:
+        return
+    if bool(((idx < 0) | (idx >= n_blocks)).any()):
+        raise ValueError(f"idx outside [0, {n_blocks})")
+    _checked = (weakref.ref(idx), *key)
+
+
 def last_positions(depth: int, chunk: int) -> list[int]:
     """``i_s`` for each slot ``s``: the last index of a chunk copied into it."""
     return [s + (chunk - 1 - s) // depth * depth for s in range(depth)]
+
+
+def cluster_size(passes: int, blocks: int, resident) -> int:
+    """The rule that picks the cluster size ``C`` for a grid of ``blocks``
+    blocks, ``passes`` of each chunk; ``resident(C)`` is how many blocks in
+    clusters of ``C`` the card holds at once (0 if one does not fit).
+
+    C = 1 if the whole grid is resident at once without clusters: every
+    chunk's passes then run side by side and share L2 already, and a cluster
+    would only add its handshake to each of a block's chunk / depth ring
+    rounds. Otherwise the largest ``C`` of ``CLUSTER_SIZES`` that divides
+    ``passes`` and of which one cluster fits. 0 if none does."""
+    if resident(1) >= blocks:
+        return 1
+    return next((c for c in CLUSTER_SIZES if passes % c == 0 and resident(c) >= c), 0)
+
+
+def block_coords(passes: int, nchunks: int, csize: int) -> list[tuple[int, int, int]]:
+    """The kernel's grid, block by block: ``(p, c, rank)`` of block ``b``
+    in a chunk-major grid of clusters of ``csize`` blocks (``b % passes``,
+    ``b // passes``, ``b % csize``), as ``csrc/gather_ring.cu`` computes
+    them."""
+    return [(b % passes, b // passes, b % csize) for b in range(passes * nchunks)]
+
+
+def plan(depth: int, chunk: int, f: int, passes: int, nchunks: int,
+         device: torch.device) -> tuple[int, int]:
+    """``(C, clusters of C resident at once)`` for these shapes on
+    ``device``: :func:`cluster_size` on ``cudaOccupancyMaxActiveClusters``;
+    remembered per shape. Raises if no block of this ring fits in shared
+    memory."""
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    key = (dev, depth, chunk, f, passes, nchunks)
+    if key not in _plans:
+        lib = _load()
+        active = {}
+
+        def resident(c: int) -> int:
+            if lib.ngt_gather_ring_smem(chunk, depth, f, c) > SMEM_LIMIT:
+                active[c] = 0
+            else:
+                n = lib.ngt_gather_ring_active_clusters(chunk, depth, f, c, dev)
+                if n < 0:
+                    raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: cudaError {-n}")
+                active[c] = n
+            return active[c] * c
+
+        c = cluster_size(passes, passes * nchunks, resident)
+        if c == 0:
+            smem = lib.ngt_gather_ring_smem(chunk, depth, f, 1)
+            raise ValueError(f"depth {depth} x [8, {f}] blocks + {chunk} indices need {smem} "
+                             f"bytes of shared memory, above the {SMEM_LIMIT} a block may use")
+        _plans[key] = (c, active[c])
+    return _plans[key]
 
 
 def gather_ring_reference(x3: torch.Tensor, idx: torch.Tensor, depth: int, chunk: int,
@@ -110,19 +189,14 @@ def gather_ring(x3: torch.Tensor, idx: torch.Tensor, depth: int, chunk: int,
         raise ValueError("x3 and idx must be contiguous")
     if x3.data_ptr() % 16:
         raise ValueError("x3 must be 16-byte aligned (TMA bulk copies)")
-    if bool(((idx < 0) | (idx >= x3.shape[0])).any()):
-        raise ValueError(f"idx outside [0, {x3.shape[0]})")
-    lib = _load()
+    _check_range(idx, int(x3.shape[0]))
     f = int(x3.shape[2])
-    smem = lib.ngt_gather_ring_smem(chunk, depth, f)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"depth {depth} x [8, {f}] blocks + {chunk} indices need {smem} "
-                         f"bytes of shared memory, above the {SMEM_LIMIT} a block may use")
+    csize, _ = plan(depth, chunk, f, passes, nchunks, x3.device)
     out = torch.empty((passes, nchunks, depth, 8, f), dtype=torch.float32, device=x3.device)
     dev = x3.device.index if x3.device.index is not None else torch.cuda.current_device()
-    err = lib.ngt_gather_ring(x3.data_ptr(), idx.data_ptr(), out.data_ptr(), passes,
-                              nchunks, chunk, depth, f, dev,
-                              torch.cuda.current_stream(x3.device).cuda_stream)
+    err = _load().ngt_gather_ring(x3.data_ptr(), idx.data_ptr(), out.data_ptr(), passes,
+                                  nchunks, chunk, depth, f, csize, dev,
+                                  torch.cuda.current_stream(x3.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gather_ring kernel launch failed: cudaError {err}")
     launch_counts[depth] += 1

@@ -10,8 +10,9 @@ E = 131,072 random block ids (``numpy.random.default_rng(0)``, as the tool
 draws them), P = 16 passes, chunk 2048, depth in {2, 4, 8, 16, 24}. For each
 depth it times the CUDA kernel (``ops/gather_ring.py``) with CUDA events after
 warm-up and prints M blocks/s, M rows/s (8 rows a block), GB/s (the bytes of
-all its copies) and its bound. Two library yardsticks follow, each one
-``torch.index_select`` call:
+all its copies), its bound, and the cluster size C the wrapper's rule chose
+with the number of such clusters the card holds at once. Two library
+yardsticks follow, each one ``torch.index_select`` call:
 
 * the same P * E 8-row blocks (the kernel's reads, plus 17.2 GB of writes);
 * P * E single 1 KB rows, ``x[8 * idx]``, through ``ops/scatter.fast_take``
@@ -41,7 +42,7 @@ import sys
 import numpy as np
 import torch
 
-from ..ops.gather_ring import gather_ring
+from ..ops.gather_ring import gather_ring, plan
 from ..ops.scatter import fast_take
 from ..utils.profiling import HBM_BYTES_PER_S, time_ms
 
@@ -82,10 +83,10 @@ def _rates(ms: float, ids: int, traffic: int, least: int) -> dict:
 
 def probe(x3: torch.Tensor, idx: torch.Tensor, reps: int = 10, chunk: int = CHUNK,
           passes: int = P) -> list[dict]:
-    """Time the kernel at each depth; one row of rates and bound per depth.
-    The passes re-read the same blocks, so the bound counts each distinct
-    block once (a re-read may hit L2); ``traffic_at_hbm_ms`` is the time of
-    every copy at the memory rate."""
+    """Time the kernel at each depth; one row of rates, bound and cluster
+    plan per depth. The passes re-read the same blocks, so the bound counts
+    each distinct block once (a re-read may hit L2); ``traffic_at_hbm_ms``
+    is the time of every copy at the memory rate."""
     e, f = int(idx.shape[0]), int(x3.shape[2])
     distinct = int(torch.unique(idx).numel())
     rows = []
@@ -95,7 +96,9 @@ def probe(x3: torch.Tensor, idx: torch.Tensor, reps: int = 10, chunk: int = CHUN
         r = _rates(ms, passes * e, copy_bytes(depth, e, passes, chunk, f),
                    distinct * 8 * f * 4 + e * 4 + out)
         r["M_rows_per_s"] = 8 * r["M_ids_per_s"]  # 8 rows a block
-        rows.append(dict(depth=depth, distinct_blocks=distinct, **r))
+        csize, active = plan(depth, chunk, f, passes, e // chunk, x3.device)
+        rows.append(dict(depth=depth, distinct_blocks=distinct, cluster=csize,
+                         active_clusters=active, **r))
     return rows
 
 
@@ -122,7 +125,8 @@ def report(rows: list[dict], yard: dict) -> list[str]:
     """Printable lines, one per depth and one per yardstick."""
     out = []
     for r in rows:
-        out.append(f"gather ring depth={r['depth']:3d}: {r['ms']:8.3f} ms -> "
+        out.append(f"gather ring depth={r['depth']:3d} C={r['cluster']} "
+                   f"({r['active_clusters']} clusters at once): {r['ms']:8.3f} ms -> "
                    f"{r['M_ids_per_s']:7.1f} M blocks/s, {r['M_rows_per_s']:8.1f} M rows/s, "
                    f"{r['GB_per_s']:7.1f} GB/s; bound {r['bound_ms']:.3f} ms, all copies "
                    f"at the memory rate {r['traffic_at_hbm_ms']:.3f} ms")

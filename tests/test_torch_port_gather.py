@@ -1,7 +1,8 @@
 """The gather-ring probe's plain version against the JAX package's Pallas
 kernel (``tools/exp_dma_gather.py:56``, run here in Pallas TPU interpret
 mode) and against a loop over the port's stated contract; the wrapper
-refuses anything but a CUDA tensor.
+refuses anything but a CUDA tensor; the kernel's cluster-size rule, its
+grid order and the wrapper's memo of ids found in range.
 
 The TPU kernel starts the copy into a slot before it waits for the slot's
 previous copy, so its result is defined only where each slot is written
@@ -24,6 +25,10 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from noise_gnn_tpu_torch.ops.gather_ring import (
+    CLUSTER_SIZES,
+    _check_range,
+    block_coords,
+    cluster_size,
     gather_ring,
     gather_ring_reference,
     last_positions,
@@ -102,3 +107,64 @@ def test_wrapper_refuses_cpu_and_bad_arguments():
         gather_ring_reference(x3, idx[:30], 2, 8, 2)
     with pytest.raises(ValueError, match="int32"):
         gather_ring_reference(x3, idx.long(), 2, 8, 2)
+
+
+def _resident(per_cluster):
+    """``resident(C)`` for clusters-at-once counts by C (0: does not fit)."""
+    return lambda c: per_cluster.get(c, 0) * c
+
+
+@pytest.mark.parametrize("passes,blocks,per_cluster,want", [
+    (16, 1024, {1: 1056, 2: 528, 4: 248, 8: 124}, 1),  # the grid fits at once
+    (16, 1024, {1: 660, 2: 396, 4: 186, 8: 92}, 8),
+    (16, 1024, {1: 132, 2: 66, 4: 30, 8: 15}, 8),
+    (12, 1024, {1: 132, 2: 66, 4: 30, 8: 15}, 4),  # 8 does not divide 12
+    (2, 1024, {1: 132, 2: 66, 4: 30, 8: 15}, 2),
+    (3, 1024, {1: 132, 2: 66, 4: 30, 8: 15}, 1),
+    (16, 1024, {1: 132, 2: 66, 4: 30}, 4),  # no cluster of 8 fits
+    (16, 1024, {2: 1}, 2),  # only with its ids split over 2 blocks
+    (16, 1024, {}, 0),  # nothing fits
+])
+def test_cluster_size_rule(passes, blocks, per_cluster, want):
+    assert cluster_size(passes, blocks, _resident(per_cluster)) == want
+    assert want == 0 or passes % want == 0
+
+
+def test_cluster_size_is_largest_that_divides_and_fits():
+    """Past one wave, the largest of 8, 4, 2, 1 that divides passes and fits."""
+    for passes in range(1, 33):
+        for limit in CLUSTER_SIZES:
+            fits = {c: 15 for c in CLUSTER_SIZES if c <= limit}
+            got = cluster_size(passes, 10**6, _resident(fits))
+            assert got == max(c for c in CLUSTER_SIZES if passes % c == 0 and c <= limit)
+    assert cluster_size(3, 10**6, _resident({c: 15 for c in CLUSTER_SIZES})) == 1
+
+
+@pytest.mark.parametrize("passes,nchunks,csize", [
+    (16, 4, 8), (16, 3, 4), (8, 5, 8), (2, 5, 2), (3, 4, 1), (4, 1, 4), (1, 7, 1)])
+def test_block_coords_chunk_major_clusters(passes, nchunks, csize):
+    """Every (p, c) once; cluster k holds passes q * C .. q * C + C - 1 of one
+    chunk, rank r being pass q * C + r."""
+    coords = block_coords(passes, nchunks, csize)
+    assert sorted((p, c) for p, c, _ in coords) == [
+        (p, c) for p in range(passes) for c in range(nchunks)]
+    for k in range(len(coords) // csize):
+        cluster = coords[k * csize:(k + 1) * csize]
+        assert len({c for _, c, _ in cluster}) == 1
+        q = cluster[0][0] // csize
+        assert [(p, r) for p, _, r in cluster] == [(q * csize + r, r) for r in range(csize)]
+
+
+def test_range_check_memo_sees_in_place_change():
+    """The wrapper checks an unchanged ids tensor once; a change in place
+    (or another tensor) is checked again."""
+    idx = torch.arange(8, dtype=torch.int32)
+    _check_range(idx, 8)
+    _check_range(idx, 8)  # memo
+    with pytest.raises(ValueError, match="outside"):
+        _check_range(idx, 7)  # another table size
+    idx += 10
+    with pytest.raises(ValueError, match="outside"):
+        _check_range(idx, 8)
+    with pytest.raises(ValueError, match="outside"):
+        _check_range(idx.clone() - 20, 8)

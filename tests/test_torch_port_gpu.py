@@ -152,18 +152,46 @@ def test_main_path_small_on_cuda(cuda, tmp_path):
 def test_gather_ring_kernel_matches_plain(cuda, f):
     """Bit-equal final rings for depth == chunk, depth < chunk (slots
     rewritten, the last copy kept) and depth 1 (``chip_smoke.GATHER_CASES``),
-    with a launch counted each."""
-    from chip_smoke import GATHER_CASES
+    at passes 1, 2, 3, 4, 8 and 16, with a launch counted each call and a
+    repeated call bit-equal."""
+    from chip_smoke import GATHER_CASES, GATHER_PASSES
 
     rng = np.random.default_rng(f)
     x3 = torch.from_numpy(rng.standard_normal((1000, 8, f)).astype(np.float32)).to(cuda)
     for depth, chunk in GATHER_CASES:
         idx = torch.from_numpy(rng.integers(0, 1000, chunk * 5).astype(np.int32)).to(cuda)
-        before = gr.launch_counts[depth]
-        got = gr.gather_ring(x3, idx, depth, chunk, 3)
-        torch.cuda.synchronize()
-        assert gr.launch_counts[depth] == before + 1
-        assert torch.equal(got, gr.gather_ring_reference(x3, idx, depth, chunk, 3))
+        for passes in GATHER_PASSES:
+            before = gr.launch_counts[depth]
+            got = gr.gather_ring(x3, idx, depth, chunk, passes)
+            again = gr.gather_ring(x3, idx, depth, chunk, passes)
+            torch.cuda.synchronize()
+            assert gr.launch_counts[depth] == before + 2
+            assert torch.equal(got, again)
+            assert torch.equal(got, gr.gather_ring_reference(x3, idx, depth, chunk, passes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("passes", [1, 2, 3, 4, 8, 16])
+def test_gather_ring_kernel_clusters(cuda, passes):
+    """Depth 24 of [8, 256] blocks (one block an SM) on a grid of over twice
+    the card's SMs, where the rule clusters: C is the largest of 8, 4, 2, 1
+    dividing passes. One launch counted per call, bit-equal to the plain
+    version and to a repeated call."""
+    from chip_smoke import wave_chunks
+
+    nchunks = wave_chunks(passes, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    csize, active = gr.plan(24, 64, 256, passes, nchunks, cuda)
+    assert csize == max(c for c in gr.CLUSTER_SIZES if passes % c == 0) and active >= 1
+    rng = np.random.default_rng(passes)
+    x3 = torch.from_numpy(rng.standard_normal((1000, 8, 256)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 1000, 64 * nchunks).astype(np.int32)).to(cuda)
+    before = gr.launch_counts[24]
+    got = gr.gather_ring(x3, idx, 24, 64, passes)
+    again = gr.gather_ring(x3, idx, 24, 64, passes)
+    torch.cuda.synchronize()
+    assert gr.launch_counts[24] == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, gr.gather_ring_reference(x3, idx, 24, 64, passes))
 
 
 @pytest.mark.gpu
@@ -174,3 +202,7 @@ def test_gather_ring_kernel_refuses(cuda):
         gr.gather_ring(x3, idx, 16, 64, 1)  # 16 blocks of 32 KB
     with pytest.raises(ValueError, match="outside"):
         gr.gather_ring(x3, idx + 10, 2, 64, 1)
+    gr.gather_ring(x3, idx, 2, 64, 1)  # in range: the wrapper remembers idx
+    idx += 10  # the same tensor, changed in place
+    with pytest.raises(ValueError, match="outside"):
+        gr.gather_ring(x3, idx, 2, 64, 1)
