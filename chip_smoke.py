@@ -35,7 +35,20 @@ when every phase passed):
    epoch of 4 steps with the consistency term at the arxiv widths (sagePL
    2 x 256, fanouts [10, 5]); f32, dropout 0, deterministic trees, the same
    initial params; summed losses within 1e-5 relative, params within
-   1e-4, logits within 1e-4.
+   1e-4, logits within 1e-4. The rewiring: ``hier_topk`` on 2^20 tied
+   values (multiples of 0.25, signed zeros, -inf) and ``topk_rewire_tree``
+   on a tree of 32 seeds with fanouts [10, 5, 5] (9,952 rows) over
+   exact-arithmetic rows (four entries of +-0.5: every similarity a
+   multiple of 0.25, ties everywhere), bit-equal to the CPU, order
+   included. Then one TE epoch of 4 steps at the arxiv widths (sagePL
+   3 x 256 on 128 features, 40 classes, fanouts [10, 5, 5], batch 32)
+   without and with the rewired contrast, on a forest in which no node
+   repeats within a step's tree (so no two hidden rows are equal in exact
+   arithmetic; see tests/test_torch_port_te.py) and a negative-view rate
+   of 0.01 (``shuffle_pos`` then shuffles nothing, so no random draw
+   differs between the devices): summed losses within 1e-5 relative,
+   params within 1e-4, and whether each step's rewired topologies agree,
+   with the margin of the k-th pick where they do not.
 3. Main path at full width: ``noise_gnn_tpu_torch.main.main`` on
    ``configs/config_products.yml`` with num_runs 1, max_epochs 2,
    reinit_retries 0 (the full synthetic products graph, 2,449,029 nodes,
@@ -52,15 +65,17 @@ when every phase passed):
 4. CTP path at full width: ``main`` on ``configs/config_ctp.yml`` (the
    synthetic ogbn-arxiv graph, 169,343 nodes, 128 features, 40 classes;
    sagePL 2 x 256, fanouts [10, 5], batch 512, f32) with num_runs 1 and
-   reinit_retries 0, four times, the SpMM counts reset before and read after
+   reinit_retries 0, five times, the SpMM counts reset before and read after
    each: 2 epochs uninterrupted (epoch 0 without, epoch 1 with the
-   consistency term); 1 epoch with ``ckpt_every: 1``; ``resume: true`` to
-   epoch 2; and ``do_train: false`` (``algo_type: coteaching``, as the JAX
-   package loads a checkpoint of two nets) on the last checkpoint. Losses
-   finite, validation accuracy of the better net above 1/40, the resumed
-   epoch 1's losses within 1e-4 relative of the uninterrupted run's (the
-   backward's scatter-adds are atomics, so two runs differ in the last
-   bits), the loaded nets' validation accuracies within 1e-3 of the resumed
+   consistency term), twice; 1 epoch with ``ckpt_every: 1``; ``resume:
+   true`` to epoch 2; and ``do_train: false`` (``algo_type: coteaching``,
+   as the JAX package loads a checkpoint of two nets) on the last
+   checkpoint. Losses finite, validation accuracy of the better net above
+   1/40, the two uninterrupted runs' epoch 1 compared bit for bit (logged),
+   the resumed epoch 1's summed losses equal to the uninterrupted run's bit
+   for bit (every sum that feeds the loss adds in a fixed order: the
+   gather of sagePL's noise rows has a sorted-segment-sum backward), the
+   loaded nets' validation accuracies within 1e-3 of the resumed
    run's last epoch's (the same params, evaluated one net at a time instead
    of as a pair), and the SpMM launched for the leaf table (F = 128, once per
    run), the pair eval (F = 512, once per epoch) and the loaded nets' eval
@@ -86,9 +101,31 @@ when every phase passed):
    yardstick): kernel, library, kernel, library; then its plain version;
    beside the bound: max(bytes / 3.35 TB/s, adds / 67 TFLOP/s), counting x,
    indices and indptr read once and out written once.
+7. TE path at full width: ``main`` on ``configs/config_arxiv.yml``
+   (``what: _test3`` on an OGB dataset: ``PipelineTE``; synthetic
+   ogbn-arxiv; sagePL 3 x 256, fanouts [10, 5, 5], batch 512: 159,232 flat
+   rows a step, 78 row blocks of the rewire), with num_runs 1, max_epochs
+   2, ct_tk 0 (epoch 1 rewires) and reinit_retries 0. The train split is
+   cut to ``TE_STEPS`` batches (logged) so that the contrast epoch stays
+   near a minute, through the split cache that ``load_network`` reads under
+   ``load_index`` (kept in the run's own ``data_dir``). Then the same run
+   again with the contrast term off in epoch 1 (the same forget rates), as
+   the witness for epoch 1's accuracy (whether its epoch 0 matches is
+   logged).
+   Losses finite, ``loss_cont_1 > 0`` in epoch 1 of the first run only,
+   each net's contrast loss lower over the last quarter of the contrast
+   epoch's steps than over the first, the better net's validation accuracy
+   above 1/40, and the SpMM counts (reset before, read after each run)
+   show the leaf table (F = 128, once) and the pair eval (F = 512, two
+   layers an epoch) through the kernel. It logs ms per plain and per
+   contrast step, the rewire's share of a contrast step (CUDA events
+   around each ``topk_rewire_tree``), peak device memory, both runs'
+   validation accuracies, and the time of one rewire block's similarity
+   matmul at the f32 precision the rewire needs ('highest') and with TF32.
 
 Then it prints one ``{"kernels": [...]}`` line (errors from the full-size
-checks, launches from the main paths), the ``nvidia-smi`` line and, last,
+checks, launches from the main paths; the arxiv rows count the CTP and
+the TE runs'), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Details go to ``<out>/report.json``.
 """
 
@@ -108,14 +145,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from noise_gnn_tpu_torch.augment import rewire
 from noise_gnn_tpu_torch.eval.inference import FullGraphInference
 from noise_gnn_tpu_torch.graph.containers import CSRGraph, coo_to_csr
 from noise_gnn_tpu_torch.graph.datasets import load_network
 from noise_gnn_tpu_torch.main import main as port_main
 from noise_gnn_tpu_torch.models import nets
 from noise_gnn_tpu_torch.models.convert import params_from_jax, params_to_jax
-from noise_gnn_tpu_torch.ops import gather_ring, spmm
+from noise_gnn_tpu_torch.ops import gather_ring, sddmm, spmm
 from noise_gnn_tpu_torch.ops.leaf_agg import fused_leaf_table
+from noise_gnn_tpu_torch.ops.tree_agg import TreeTopo
 from noise_gnn_tpu_torch.tools import gather_probe
 from noise_gnn_tpu_torch.train import steps
 from noise_gnn_tpu_torch.utils.config import load_config
@@ -124,6 +163,8 @@ from noise_gnn_tpu_torch.utils.profiling import (FP32_OPS_PER_S, HBM_BYTES_PER_S
 
 CONFIG = "configs/config_products.yml"
 CTP_CONFIG = "configs/config_ctp.yml"
+TE_CONFIG = "configs/config_arxiv.yml"
+TE_STEPS = 64  # train batches an epoch in phase 7
 SOURCE = "noise_gnn_tpu_torch/csrc/spmm.cu"
 REPLACES = "noise_gnn_tpu/ops/pallas_spmm.py:147"
 GATHER_SOURCE = "noise_gnn_tpu_torch/csrc/gather_ring.cu"
@@ -438,17 +479,184 @@ def check_small_ctp(dev) -> dict:
     return rep
 
 
+def exact_rows(rng, n: int, d: int, pool: int) -> np.ndarray:
+    """[n, d] f32 rows drawn from ``pool`` distinct rows with four entries of
+    +-0.5 and the rest 0: unit norms, and every dot product a multiple of
+    0.25 in any order of summation."""
+    rows = np.zeros((pool, d), np.float32)
+    for r in range(pool):
+        rows[r, rng.choice(d, 4, replace=False)] = rng.choice([-0.5, 0.5], 4)
+    return rows[rng.integers(0, pool, n)]
+
+
+def _topo_arrays(t: TreeTopo) -> list[np.ndarray]:
+    return [a.cpu().numpy() for a in (t.edge_mask, t.extra_src, t.extra_dst, t.extra_mask)]
+
+
+def check_small_rewire(dev) -> dict:
+    """``hier_topk`` on tied values and ``topk_rewire_tree`` on exact rows,
+    card against CPU, bit for bit (values as int32 images, so that -0.0 and
+    0.0 differ)."""
+    rng = np.random.default_rng(6)
+    x = (rng.integers(-4, 5, 1 << 20) * 0.25).astype(np.float32)
+    x[rng.random(x.shape[0]) < 0.1] = -0.0
+    x[rng.random(x.shape[0]) < 0.05] = -np.inf
+    topk_equal = []
+    for k in (1, 100, 31_846):
+        (cv, ci), (gv, gi) = (sddmm.hier_topk(torch.from_numpy(x).to(d), k)
+                              for d in ("cpu", dev))
+        topk_equal.append(bool(torch.equal(ci, gi.cpu()) and torch.equal(
+            cv.view(torch.int32), gv.cpu().view(torch.int32))))
+    b, fanouts = 32, (10, 5, 5)
+    topo_cpu = TreeTopo(b, fanouts, torch.from_numpy(rng.random(b * 310) < 0.8))
+    h = torch.from_numpy(exact_rows(rng, topo_cpu.num_nodes, 16, 300))
+    want = rewire.topk_rewire_tree(h, topo_cpu, 0.1)
+    got = rewire.topk_rewire_tree(h.to(dev), TreeTopo(b, fanouts, topo_cpu.edge_mask.to(dev)),
+                                  0.1)
+    rewire_equal = all(np.array_equal(a, c) for w, g in zip(want, got)
+                       for a, c in zip(_topo_arrays(w), _topo_arrays(g)))
+    rep = dict(hier_topk_equal=topk_equal, rewire_equal=rewire_equal,
+               rows=topo_cpu.num_nodes, extra_edges=int(want[0].extra_src.shape[0]),
+               ok=all(topk_equal) and rewire_equal)
+    log(f"  hier_topk on 2^20 tied values, k = 1 / 100 / 31846: bit-equal to the CPU "
+        f"{topk_equal}; topk_rewire_tree on {rep['rows']} exact rows ({rep['extra_edges']} "
+        f"additions a graph): masks and edges bit-equal {rewire_equal}")
+    if not rep["ok"]:
+        raise RuntimeError(f"the rewiring on the card disagrees with the CPU: {rep}")
+    return rep
+
+
+def forest(n_roots: int, fanouts: tuple[int, ...]) -> tuple[np.ndarray, np.ndarray, int]:
+    """Complete in-trees with the given fanouts (edges child -> parent):
+    (edge_index, roots, nodes). A tree sampled from roots takes every
+    in-neighbour and repeats no node."""
+    size = 1 + int(np.cumsum(np.cumprod(fanouts))[-1])
+    src, dst = [], []
+    for r in range(n_roots):
+        level, nxt = [r * size], r * size + 1
+        for f in fanouts:
+            new = []
+            for parent in level:
+                kids = list(range(nxt, nxt + f))
+                nxt += f
+                src += kids
+                dst += [parent] * f
+                new += kids
+            level = new
+    return (np.stack([np.asarray(src, np.int32), np.asarray(dst, np.int32)]),
+            np.arange(n_roots) * size, n_roots * size)
+
+
+def check_small_te(dev) -> dict:
+    """One TE epoch of 4 steps at the arxiv widths, without and with the
+    rewired contrast, on the card against the CPU (see phase 2 of the
+    module doc). Returns both comparisons."""
+    f, c, hidden, fanouts, bs, nsteps = 128, 40, 256, (10, 5, 5), 32, 4
+    ei, roots, n = forest(bs * nsteps, fanouts)
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    y = rng.integers(0, c, n)
+    yhn = np.where(rng.random(n) < 0.3, rng.integers(0, c, n), y)
+    seeds = rng.permutation(roots).reshape(nsteps, bs)
+    masks = np.ones((nsteps, bs), bool)
+    spec = nets.NetSpec(module="sagePL", in_size=f, hidden_size=hidden, out_size=c,
+                        num_layers=3, dropout=0.0, nbr_nodes=n)
+    init = [params_to_jax(nets.init_params(torch.Generator().manual_seed(s), spec))
+            for s in (1, 2)]
+    kw = dict(algo="coteaching", co_lambda=0.1, spl_cont_beta=1.0, spl_rewire_rate=0.1,
+              spl_noise_rate_pos=0.1, spl_noise_rate_neg=0.01)
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=1e-3)
+
+    def run_on(d, use_contrast):
+        data = steps.GraphData(x=torch.from_numpy(x).to(d), y=torch.from_numpy(y).to(d),
+                               yhn=torch.from_numpy(yhn).to(d),
+                               clean=torch.from_numpy(y == yhn).to(d),
+                               csr=CSRGraph.from_coo(ei, n, d))
+        states = [steps.state_from_params(params_from_jax(q, d), adam) for q in init]
+        rewires = []
+
+        def recording(h, topo, k):
+            out = rewire.topk_rewire_tree(h, topo, k)
+            rewires.append((h.detach().cpu(), topo, out))
+            return out
+
+        steps.topk_rewire_tree = recording
+        try:
+            m = steps.te_epoch(spec, *states, data, torch.from_numpy(seeds).to(d),
+                               torch.from_numpy(masks).to(d), torch.Generator(device=d), 0.2,
+                               fanouts, use_contrast=use_contrast, **kw)
+        finally:
+            steps.topk_rewire_tree = rewire.topk_rewire_tree
+        return ({k: float(v) for k, v in m.items()}, [params_to_jax(s.params) for s in states],
+                rewires)
+
+    reps = {}
+    for use_contrast in (False, True):
+        m_gpu, p_gpu, rw_gpu = run_on(dev, use_contrast)
+        m_cpu, p_cpu, rw_cpu = run_on(torch.device("cpu"), use_contrast)
+        keys = ("loss_1", "loss_2") + (("loss_cont_1", "loss_cont_2") if use_contrast else ())
+        loss_err = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in keys)
+        param_err = max(max(float(np.abs(a["noise"] - b["noise"]).max()),
+                            max(float(np.abs(ca[k] - cb[k]).max())
+                                for ca, cb in zip(a["convs"], b["convs"]) for k in ca))
+                        for a, b in zip(p_gpu, p_cpu))
+        agree = [all(np.array_equal(u[0], v[0]) and np.array_equal(u[3], v[3])
+                     and sorted(zip(u[1].tolist(), u[2].tolist()))
+                     == sorted(zip(v[1].tolist(), v[2].tolist()))
+                     for u, v in zip(map(_topo_arrays, g[2]), map(_topo_arrays, q[2])))
+                 for g, q in zip(rw_gpu, rw_cpu)]
+        margins = [pick_margins(h, topo, pos.edge_mask, dev) for (h, topo, (pos, _)), same
+                   in zip(rw_cpu, agree) if not same]
+        rep = reps["contrast" if use_contrast else "plain"] = dict(
+            loss_rel_err=loss_err, param_max_abs_err=param_err, rewires_agree=agree,
+            kth_margins=margins, loss_cont_1=m_cpu["loss_cont_1"],
+            ok=(loss_err <= 1e-5 and param_err <= 1e-4
+                and (m_cpu["loss_cont_1"] > 0) == use_contrast))
+        log(f"  {nsteps} TE steps {'with' if use_contrast else 'without'} the rewired "
+            f"contrast, {bs} seeds x fanouts {list(fanouts)} ({bs * 311} rows a step): "
+            f"summed-loss rel err {loss_err:.2e} (tol 1e-5), params max abs err "
+            f"{param_err:.2e} (tol 1e-4)" + (
+                f", contrast term {m_cpu['loss_cont_1']:.4f}, rewired topologies agree "
+                f"by step {agree}" + (f", k-th pick margins {margins}" if margins else "")
+                if use_contrast else ""))
+        if not rep["ok"]:
+            raise RuntimeError(f"the TE epoch on the card disagrees with the CPU: {rep}")
+    return reps
+
+
+def pick_margins(h: torch.Tensor, topo: TreeTopo, pos_keep: torch.Tensor, dev) -> dict:
+    """For a rewire whose picks differ between the devices: in each sweep,
+    the distance between the k2-th and the (k2+1)-th candidate similarity
+    (from the CPU's hidden rows, the similarity matrix whole on the card)."""
+    hn = sddmm.l2_normalize(h.to(dev).float())
+    n, b = topo.num_nodes, topo.batch_size
+    k2 = max(2 * int(n * 0.1), 1)
+    child = torch.arange(b, n, device=dev)
+    par = topo.parent_of(child)
+    out = {}
+    for name, sign, keep in (("pos", 1.0, pos_keep), ("neg", -1.0, topo.edge_mask)):
+        s = sign * (hn @ hn.T)
+        s.fill_diagonal_(float("-inf"))
+        keep = keep.to(dev)
+        s[child[keep], par[keep]] = float("-inf")
+        v = torch.topk(s.reshape(-1), k2 + 1).values
+        out[name] = float(v[k2 - 1] - v[k2])
+        del s
+    return out
+
 # ------------------------------------------------------------ main path
 
 
-def _drive(cfg: dict) -> dict:
-    """Run ``main(cfg)`` with the SpMM counts reset just before and read
-    just after; returns the result, wall time, counts, peak memory and the
-    run's metrics records."""
+def _drive(cfg: dict, run=port_main) -> dict:
+    """Run ``run(cfg)`` (``main``) with the SpMM counts reset just before
+    and read just after; returns the result, wall time, counts, peak memory
+    and the run's metrics records."""
     spmm.launch_counts.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = port_main(cfg)
+    res = run(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {int(f): int(c) for f, c in spmm.launch_counts.items()}
@@ -509,11 +717,12 @@ def run_ctp_path(out: Path) -> dict:
     base.update(num_runs=1, max_epochs=2, reinit_retries=0)
     shutil.rmtree(out / "ctp", ignore_errors=True)  # metrics files append
     ckpt = str(out / "ctp" / "ckpt")
-    plan = (("full", {}),
+    plan = (("full", {}), ("full again", {}),
             ("killed", dict(max_epochs=1, ckpt_every=1, ckpt_path=ckpt)),
             ("resumed", dict(resume=True, ckpt_every=1, ckpt_path=ckpt)),
             ("loaded", dict(algo_type="coteaching", do_train=False, ckpt_path=ckpt)))
-    want_counts = {"full": {128: 1, 512: 2}, "killed": {128: 1, 512: 1},
+    want_counts = {"full": {128: 1, 512: 2}, "full again": {128: 1, 512: 2},
+                   "killed": {128: 1, 512: 1},
                    "resumed": {128: 1, 512: 1}, "loaded": {128: 1, 256: 2}}
     runs = {}
     for name, over in plan:
@@ -542,23 +751,163 @@ def run_ctp_path(out: Path) -> dict:
     best_val = max(full[-1]["val_acc_1"], full[-1]["val_acc_2"])
     if not best_val > 1 / 40:
         raise RuntimeError(f"CTP validation accuracy {best_val} not above 1/40")
+    again = runs["full again"]["epochs"]
+    keys = ("loss_1", "loss_2", "loss_cr_1", "loss_cr_2", "correct_1", "correct_2")
+    repeat_equal = {k: again[1][k] == full[1][k] for k in keys}
     resume_err = max(abs(resumed[0][k] - full[1][k]) / abs(full[1][k])
                      for k in ("loss_1", "loss_2"))
     acc1, acc2 = loaded["result"]["loaded"]
     load_err = max(abs(acc1["valid"] - resumed[0]["val_acc_1"]),
                    abs(acc2["valid"] - resumed[0]["val_acc_2"]))
+    log(f"  two uninterrupted runs' epoch 1 bit-equal by metric: {repeat_equal}")
     log(f"  resumed epoch 1 against the uninterrupted run: summed losses rel diff "
-        f"{resume_err:.3e} (tol 1e-4); loaded nets' validation {acc1['valid']:.4f}/"
-        f"{acc2['valid']:.4f} against the resumed run's {resumed[0]['val_acc_1']:.4f}/"
-        f"{resumed[0]['val_acc_2']:.4f}")
-    if not resume_err <= 1e-4:
+        f"{resume_err:.3e} (required 0: bit-equal); loaded nets' validation "
+        f"{acc1['valid']:.4f}/{acc2['valid']:.4f} against the resumed run's "
+        f"{resumed[0]['val_acc_1']:.4f}/{resumed[0]['val_acc_2']:.4f}")
+    if resume_err != 0.0:
         raise RuntimeError(f"resumed epoch 1 is {resume_err:.3e} from the uninterrupted run")
     if not load_err <= 1e-3:
         raise RuntimeError(f"load-and-eval accuracies differ from the run's by {load_err}")
     for r in runs.values():
         del r["result"], r["records"]
-    return dict(config=CTP_CONFIG, runs=runs, resume_rel_diff=resume_err,
-                load_acc_diff=load_err, best_val=best_val, loaded=dict(acc1=acc1, acc2=acc2))
+    return dict(config=CTP_CONFIG, runs=runs, repeat_equal=repeat_equal,
+                resume_rel_diff=resume_err, load_acc_diff=load_err, best_val=best_val,
+                loaded=dict(acc1=acc1, acc2=acc2))
+
+
+def _cut_split(cfg: dict, steps_kept: int) -> dict:
+    """Write the config's split, its train part cut to ``steps_kept``
+    batches, into the split cache that ``load_network`` reads back under
+    ``load_index`` (the JAX package's own hook); returns the sizes."""
+    load_network(dict(cfg, load_index=True))  # computes the split and caches it
+    cache = (Path(cfg["data_dir"]) / "index" / f"{cfg['dataset_name']}_seed"
+             f"{int(cfg.get('seed', 0))}_scale{int(cfg.get('synthetic_scale', 1))}.npz")
+    with np.load(cache) as z:
+        idx = {k: z[k] for k in z.files}
+    full = int(idx["train_idx"].shape[0])
+    kept = min(full, steps_kept * int(cfg["batch_size"]))
+    idx["train_idx"] = idx["train_idx"][:kept]
+    np.savez(cache, **idx)
+    return dict(full=full, kept=kept)
+
+
+def run_te_path(out: Path, dev) -> dict:
+    """The TE path at full width (phase 7 of the module doc): ``main`` on
+    the arxiv config, then the same run without the contrast epoch."""
+    cfg = load_config(TE_CONFIG)
+    shutil.rmtree(out / "te", ignore_errors=True)
+    # the cut split cache lives in the run's own data_dir (the graph is the
+    # synthetic one either way)
+    cfg.update(num_runs=1, max_epochs=2, ct_tk=0, reinit_retries=0, load_index=True,
+               out_dir=str(out / "te"), data_dir=str(out / "te" / "data"))
+    bs = int(cfg["batch_size"])
+    cut = _cut_split(cfg, TE_STEPS)
+    nsteps = -(-cut["kept"] // bs)
+    log(f"  train split cut from {cut['full']} to {cut['kept']} seeds ({nsteps} steps an "
+        f"epoch) through load_index, to keep the contrast epoch near a minute")
+    events, step_losses = [], []
+
+    def timed_rewire(h, topo, k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = rewire.topk_rewire_tree(h, topo, k)
+        end.record()
+        events.append((start, end))
+        return res
+
+    def logged_step(*args, **kw):
+        loss, aux = te_step_loss(*args, **kw)
+        ct, _, _, lc1, lc2 = aux
+        step_losses.append(torch.stack([ct.loss_1, ct.loss_2, lc1, lc2]).detach())
+        return loss, aux
+
+    def drive(c):
+        step_losses.clear()
+        r = _drive(c)  # main(c): config_arxiv.yml's `what: _test3` on OGB -> PipelineTE
+        r["step_losses"] = torch.stack(step_losses).cpu().numpy()
+        return r
+
+    te_step_loss, te_epoch = steps.te_step_loss, steps.te_epoch
+    steps.topk_rewire_tree, steps.te_step_loss = timed_rewire, logged_step
+    try:
+        r = drive(cfg)
+        rewire_ms = [a.elapsed_time(b) for a, b in events]
+        events.clear()
+        # the witness: the same run (the same forget rates) with the
+        # contrast term off in epoch 1
+        steps.te_epoch = lambda *a, **kw: te_epoch(*a, **dict(kw, use_contrast=False))
+        w = drive(dict(cfg, out_dir=str(out / "te" / "witness")))
+    finally:
+        steps.topk_rewire_tree = rewire.topk_rewire_tree
+        steps.te_step_loss, steps.te_epoch = te_step_loss, te_epoch
+    if events:
+        raise RuntimeError(f"the witness run rewired {len(events)} times")
+    epochs, w_epochs = _events(r, "epoch_te"), _events(w, "epoch_te")
+    for tag, eps in (("", epochs), ("witness, no contrast: ", w_epochs)):
+        for e in eps:
+            log(f"  {tag}TE epoch {e['epoch']}: train {e['epoch_train_s']:.3f} s "
+                f"({e['epoch_train_s'] / nsteps * 1e3:.1f} ms a step), eval "
+                f"{e['epoch_eval_s']:.3f} s, loss {e['loss_1']:.4f}/{e['loss_2']:.4f}, "
+                f"contrast {e['loss_cont_1']:.4f}/{e['loss_cont_2']:.4f}, pure "
+                f"{e['pure_ratio_1']:.3f}/{e['pure_ratio_2']:.3f}, val "
+                f"{e['val_acc_1']:.4f}/{e['val_acc_2']:.4f}")
+    if [e["epoch"] for e in epochs] != [0, 1] or [e["epoch"] for e in w_epochs] != [0, 1]:
+        raise RuntimeError("main did not run the TE epochs [0, 1] for the arxiv config: "
+                           f"{[e['epoch'] for e in epochs]}, {[e['epoch'] for e in w_epochs]}")
+    plain, cont = epochs
+    keys = ("loss_1", "loss_2", "val_acc_1", "val_acc_2")
+    epoch0_equal = all(plain[k] == w_epochs[0][k] for k in keys)
+    sl = r["step_losses"][nsteps:]  # the contrast epoch's steps
+    q = max(1, nsteps // 4)
+    quarters = dict(first=sl[:q].mean(axis=0).tolist(), last=sl[-q:].mean(axis=0).tolist())
+    log(f"  epoch 0 equal to the witness's (losses, val): {epoch0_equal}; contrast epoch, "
+        f"mean of the first / last {q} steps' [ce_1, ce_2, cont_1, cont_2]: "
+        f"{np.round(quarters['first'], 4).tolist()} / {np.round(quarters['last'], 4).tolist()}")
+    share = sum(rewire_ms) / (cont["epoch_train_s"] * 1e3)
+    # one rewire block's similarity matmul at the rewire's shape, two precisions
+    n = bs * (1 + int(np.cumsum(np.cumprod(cfg["nbr_neighbors"]))[-1]))  # rows a step
+    hn = torch.randn((n, int(cfg["hidden_size"])), device=dev)
+    mm = {}
+    for prec in ("highest", "high"):
+        torch.set_float32_matmul_precision(prec)
+        mm[prec] = time_ms(lambda: hn[:2048] @ hn.T, reps=20)
+    torch.set_float32_matmul_precision("highest")
+    del hn
+    rep = dict(config=TE_CONFIG, wall_s=r["wall_s"], peak_bytes=r["peak_bytes"],
+               launches=r["launches"], train_cut=cut, steps=nsteps, epochs=epochs,
+               witness_epochs=w_epochs, witness_launches=w["launches"],
+               epoch0_equal=epoch0_equal, contrast_quarters=quarters,
+               plain_step_ms=plain["epoch_train_s"] / nsteps * 1e3,
+               contrast_step_ms=cont["epoch_train_s"] / nsteps * 1e3,
+               rewire_calls=len(rewire_ms), rewire_ms_mean=float(np.mean(rewire_ms)),
+               rewire_share=share, block_matmul_ms=mm, result=list(r["result"]))
+    log(f"  {nsteps} steps an epoch: plain {rep['plain_step_ms']:.1f} ms a step, contrast "
+        f"{rep['contrast_step_ms']:.1f} ms a step; {len(rewire_ms)} rewires of "
+        f"{rep['rewire_ms_mean']:.1f} ms each (CUDA events): {100 * share:.1f}% of the "
+        f"contrast epoch's train time; one rewire block's similarity matmul "
+        f"[2048, 256] x [256, {n}] f32 {mm['highest']:.3f} ms ('highest'), "
+        f"{mm['high']:.3f} ms with TF32")
+    log(f"  main(config) wall {r['wall_s']:.1f} s, peak device memory "
+        f"{r['peak_bytes'] / 2**30:.2f} GiB, SpMM launches by F {r['launches']}")
+    losses = [e[k] for e in epochs + w_epochs
+              for k in ("loss_1", "loss_2", "loss_cont_1", "loss_cont_2")]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite TE loss: {losses}")
+    if not (plain["loss_cont_1"] == 0.0 and cont["loss_cont_1"] > 0.0
+            and w_epochs[1]["loss_cont_1"] == 0.0):
+        raise RuntimeError("the contrast term must be on in epoch 1 of the run only")
+    best_val = max(cont["val_acc_1"], cont["val_acc_2"])
+    if not best_val > 1 / 40:
+        raise RuntimeError(f"TE validation accuracy {best_val} not above 1/40")
+    if not all(b < a for a, b in zip(quarters["first"][2:], quarters["last"][2:])):
+        raise RuntimeError(f"the contrast loss did not fall over the contrast epoch: {quarters}")
+    want = {128: 1, 512: 4}  # the leaf table; the pair eval's layers 2 and 3, two epochs
+    if r["launches"] != want or w["launches"] != want:
+        raise RuntimeError(f"TE runs launched the SpMM {r['launches']} and {w['launches']} "
+                           f"times by F, expected {want}")
+    if len(rewire_ms) != nsteps:
+        raise RuntimeError(f"{len(rewire_ms)} rewires in the contrast epoch of {nsteps} steps")
+    return rep
 
 
 def run_gather_path(dev) -> dict:
@@ -705,6 +1054,8 @@ def run(out: Path) -> int:
     gather_cases = check_gather_small(dev)
     small = check_small_path(dev)
     small_ctp = check_small_ctp(dev)
+    small_rewire = check_small_rewire(dev)
+    small_te = check_small_te(dev)
 
     log("[3] main path: products, full width")
     main_rep = run_main_path(out)
@@ -719,12 +1070,18 @@ def run(out: Path) -> int:
     rows = time_shapes(dev, CONFIG, [(name, f) for name, f, _ in SHAPES], torch.bfloat16)
     ctp_rows = time_shapes(dev, CTP_CONFIG, CTP_SHAPES, torch.float32)
 
+    log("[7] TE path: arxiv, full width, with the rewired contrast")
+    te_rep = run_te_path(out, dev)
+
     kernels = [spmm_row(row, main_rep["launches"].get(row["F"], 0)) for row in rows]
-    ctp_launches = {}
-    for r in ctp_rep["runs"].values():
+    arxiv_launches = {}  # the CTP runs' and the TE run's
+    for r in list(ctp_rep["runs"].values()) + [te_rep]:
         for f, c in r["launches"].items():
-            ctp_launches[f] = ctp_launches.get(f, 0) + c
-    kernels += [spmm_row(row, ctp_launches.get(row["F"], 0)) for row in ctp_rows]
+            arxiv_launches[f] = arxiv_launches.get(f, 0) + c
+    for row in ctp_rows:
+        k = spmm_row(row, arxiv_launches.get(row["F"], 0))
+        k["launches_te"] = te_rep["launches"].get(row["F"], 0)
+        kernels.append(k)
     block_sel = gather_rep["yardsticks"]["index_select blocks"]
     row_sel = gather_rep["yardsticks"]["index_select rows"]
     for r in gather_rep["depths"]:
@@ -738,8 +1095,9 @@ def run(out: Path) -> int:
             active_clusters=r["active_clusters"]))
     report = dict(nvidia_smi=smi, device=kind, count=count, build_s=build_s,
                   checks=cases, gather_checks=gather_cases, small_path=small,
-                  small_ctp=small_ctp, main_path=main_rep, ctp_path=ctp_rep,
-                  gather_path=gather_rep, timing=rows, ctp_timing=ctp_rows, kernels=kernels)
+                  small_ctp=small_ctp, small_rewire=small_rewire, small_te=small_te,
+                  main_path=main_rep, ctp_path=ctp_rep, gather_path=gather_rep, timing=rows,
+                  ctp_timing=ctp_rows, te_path=te_rep, kernels=kernels)
     (out / "report.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)

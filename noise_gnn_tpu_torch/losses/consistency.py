@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from ..ops.scatter import segment_count, segment_sum
+from ..ops.scatter import fast_take, segment_count, segment_sum
 from ..ops.tree_agg import TreeTopo, tree_parent_gather
 
 
@@ -29,7 +29,7 @@ def _out_neighbor_mean(edge_index, h: torch.Tensor, edge_mask, epsilon: float) -
     row, col = edge_index[0].long(), edge_index[1].long()
     if edge_mask is not None:
         row = torch.where(edge_mask, row, torch.full_like(row, n))
-    total = segment_sum(h[col], row, n + 1)[:n]
+    total = segment_sum(fast_take(h, col), row, n + 1)[:n]
     deg = segment_count(row, n + 1)[:n]
     return total / (deg[:, None] + epsilon)
 

@@ -2,18 +2,20 @@
 
 Dispatches as the JAX package's ``main.py:30-59`` does, for the algorithms
 this port runs: ``coteaching`` and ``codi`` train ``PipelineCO`` on the OGB
-datasets and ``PipelineS`` on the small graphs; ``baseline`` forces
-``train_type: baseline`` on the same pipelines; ``ctp`` trains
-``PipelineCTP``. Every other ``algo_type`` (and the ``_test2``/``_test3``
-variants) raises "not yet ported". Runs on the CUDA card unless the config
-says ``device: 'cpu'``.
+datasets and ``PipelineS`` on the small graphs, or, with ``what: _test2`` or
+``_test3``, ``PipelineTE`` (OGB) and ``PipelineTES``; ``baseline`` forces
+``train_type: baseline`` on ``PipelineCO``/``PipelineS``; ``ctp`` trains
+``PipelineCTP``, ``grid`` ``PipelineSG`` and ``analysis`` ``PipelineA``.
+``contrastive`` and ``hpseudo`` raise "not yet ported". Runs on the CUDA
+card unless the config says ``device: 'cpu'``.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from .train.pipelines import PipelineCO, PipelineCTP, PipelineS, not_yet_ported
+from .train.pipelines import (PipelineA, PipelineCO, PipelineCTP, PipelineS, PipelineSG,
+                              PipelineTE, PipelineTES, not_yet_ported)
 from .utils.config import load_config
 
 OGB = ("ogbn-arxiv", "ogbn-products")
@@ -21,15 +23,21 @@ OGB = ("ogbn-arxiv", "ogbn-products")
 
 def main(config: dict):
     algo = config["algo_type"]
+    ogb = config["dataset_name"] in OGB
     if algo in ("codi", "coteaching"):
         if config.get("what") in ("_test2", "_test3"):
-            raise not_yet_ported(f"what: {config['what']!r} (PipelineTE/TES)")
-        cls = PipelineCO if config["dataset_name"] in OGB else PipelineS
+            cls = PipelineTE if ogb else PipelineTES
+        else:
+            cls = PipelineCO if ogb else PipelineS
     elif algo == "baseline":
         config["train_type"] = "baseline"
-        cls = PipelineCO if config["dataset_name"] in OGB else PipelineS
+        cls = PipelineCO if ogb else PipelineS
     elif algo == "ctp":
         cls = PipelineCTP
+    elif algo == "grid":
+        cls = PipelineSG
+    elif algo == "analysis":
+        cls = PipelineA
     else:
         raise not_yet_ported(f"algo_type {algo!r}")
     return cls(config).loop()

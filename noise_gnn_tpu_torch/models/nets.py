@@ -13,8 +13,9 @@ activations run in bf16 and the outputs come back f32.
 
 sagePL (reference sagePL.py) is a SAGE stack with a learned per-node input
 noise: ``apply`` runs a pure pass and a pass on ``x + 0.1 * normalize(noise
-[n_id])`` and returns both branches' (hidden, log-softmax, logits). Its tree
-forward is not ported: the CTP step runs ``apply`` on the flat subgraph.
+[n_id])`` and returns both branches' (hidden, log-softmax, logits). Its
+tree forward is not ported: the CTP and TE steps run ``apply`` on the flat
+subgraph.
 """
 
 from __future__ import annotations
@@ -149,29 +150,32 @@ def _stack_forward(spec, params, x, edge_index, n, edge_mask, train, gen):
 def apply(spec: NetSpec, params: dict, x: torch.Tensor, edge_index, *,
           num_nodes: int | None = None, edge_mask=None, train: bool = False,
           gen: torch.Generator | None = None, n_id: torch.Tensor | None = None,
-          noise_rate: float = 0.1) -> dict:
+          noise_rate: float = 0.1, branch: str | None = None) -> dict:
     """Edge-list forward (``edge_index`` [2, E] or a TreeTopo). Returns
     {"logits"} for sage/gcn and, for sagePL, {"h_pure", "y_pure", "z_pure",
     "h_noisy", "y_noisy", "z_noisy"}, all f32; ``n_id`` maps the rows of x
-    to the graph's nodes, whose noise rows the noisy pass adds."""
+    to the graph's nodes, whose noise rows the noisy pass adds. ``branch``
+    ("pure" or "noisy") runs only that sagePL pass and returns its three
+    outputs: the JAX package's jitted steps never compute a pass whose
+    outputs they do not read."""
     n = num_nodes if num_nodes is not None else x.shape[0]
     x = x.to(spec.dtype)
     if spec.module != "sagePL":
         return {"logits": _stack_forward(spec, params, x, edge_index, n, edge_mask, train,
                                          gen)[0].float()}
-    z_pure, h_pure = _stack_forward(spec, params, x, edge_index, n, edge_mask, train, gen)
-    noise = params["noise"]
-    nr = fast_take(noise, n_id) if n_id is not None else noise[:x.shape[0]]
-    x_noisy = x + (_l2_normalize_rows(nr) * noise_rate).to(x.dtype)
-    z_noisy, h_noisy = _stack_forward(spec, params, x_noisy, edge_index, n, edge_mask,
-                                      train, gen)
-    z_pure, z_noisy = z_pure.float(), z_noisy.float()
-    return {
-        "h_pure": h_pure.float(), "y_pure": torch.log_softmax(z_pure, dim=-1),
-        "z_pure": z_pure,
-        "h_noisy": h_noisy.float(), "y_noisy": torch.log_softmax(z_noisy, dim=-1),
-        "z_noisy": z_noisy,
-    }
+    out = {}
+    if branch != "noisy":
+        z, h = _stack_forward(spec, params, x, edge_index, n, edge_mask, train, gen)
+        out.update(h_pure=h.float(), y_pure=torch.log_softmax(z.float(), dim=-1),
+                   z_pure=z.float())
+    if branch != "pure":
+        noise = params["noise"]
+        nr = fast_take(noise, n_id) if n_id is not None else noise[:x.shape[0]]
+        x_noisy = x + (_l2_normalize_rows(nr) * noise_rate).to(x.dtype)
+        z, h = _stack_forward(spec, params, x_noisy, edge_index, n, edge_mask, train, gen)
+        out.update(h_noisy=h.float(), y_noisy=torch.log_softmax(z.float(), dim=-1),
+                   z_noisy=z.float())
+    return out
 
 
 def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
@@ -188,8 +192,8 @@ def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
     depth array from ``gen``. Returns {"logits": f32 [B, C]}."""
     if spec.module == "sagePL":
         raise NotImplementedError("apply_tree for sagePL is not yet ported to "
-                                  "noise_gnn_tpu_torch (the CTP step runs apply on "
-                                  "the flat subgraph)")
+                                  "noise_gnn_tpu_torch (the CTP and TE steps run apply "
+                                  "on the flat subgraph)")
     L = spec.num_layers
     exact = leaf_agg is not None
     want = L if exact else L + 1

@@ -6,6 +6,14 @@ source, row 1 = destination); masked edges are routed to a dead row
 dtype. The JAX module's ``fast_take`` (a TPU gather workaround) is one
 ``torch.index_select`` here. Large graphs (E * F above ~128 M elements) accumulate over
 edge chunks so the [E, F] message matrix never materializes.
+
+On a CUDA tensor ``index_add_`` (and so the backward of ``index_select``)
+adds repeated ids with float atomics, in an order that changes from run to
+run. :func:`segment_sum` does not use it: the ids are stable-sorted and each
+run of equal ids is summed in its original order, which is also the order
+of the CPU's ``index_add_``, so on the CPU the numbers do not change.
+:func:`fast_take` takes that path for its backward whenever the source
+requires grad.
 """
 
 from __future__ import annotations
@@ -27,23 +35,55 @@ def _routed(edge_index, edge_mask, num_nodes):
     return src, dst
 
 
-def fast_take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``x[idx]`` along axis 0, for an index tensor of any shape."""
-    return torch.index_select(x, 0, idx.reshape(-1)).reshape(*idx.shape, *x.shape[1:])
-
-
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """Sum ``data`` rows into ``num_segments`` buckets; fp32 accumulation,
-    result in ``data``'s dtype."""
-    out = torch.zeros((num_segments, *data.shape[1:]), dtype=_acc_dtype(data.dtype),
-                      device=data.device)
-    return out.index_add_(0, segment_ids.long(), data.to(out.dtype)).to(data.dtype)
+    """Sum ``data`` rows into ``num_segments`` buckets in a fixed order on
+    every device: stable-sort the ids, then sum each run of equal ids in its
+    original order (``torch.segment_reduce`` adds a segment's rows one after
+    another). fp32 accumulation, result in ``data``'s dtype; no host sync.
+    Ids must lie in [0, num_segments)."""
+    ids = segment_ids.reshape(-1).long()
+    order = torch.argsort(ids, stable=True)
+    sorted_ids = ids[order]
+    bounds = torch.searchsorted(
+        sorted_ids, torch.arange(num_segments + 1, device=ids.device, dtype=ids.dtype))
+    rows = data.reshape(ids.shape[0], *data.shape[segment_ids.dim():])
+    out = torch.segment_reduce(rows.to(_acc_dtype(data.dtype))[order], "sum",
+                               lengths=bounds[1:] - bounds[:-1], axis=0, unsafe=True)
+    return out.to(data.dtype)
+
+
+class _SortedTake(torch.autograd.Function):
+    """``index_select`` along axis 0 whose backward adds the rows of the
+    gradient into the source's rows with :func:`segment_sum`."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = x.shape[0]
+        return torch.index_select(x, 0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        return segment_sum(grad, idx, ctx.num_rows), None
+
+
+def fast_take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``x[idx]`` along axis 0, for an index tensor of any shape. When
+    ``x`` requires grad, the backward is a :func:`segment_sum`."""
+    flat = idx.reshape(-1)
+    if x.requires_grad and torch.is_grad_enabled():
+        rows = _SortedTake.apply(x, flat)
+    else:
+        rows = torch.index_select(x, 0, flat)
+    return rows.reshape(*idx.shape, *x.shape[1:])
 
 
 def segment_count(segment_ids: torch.Tensor, num_segments: int,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Number of (valid) entries per segment, f32 [num_segments]."""
+    """Number of (valid) entries per segment, f32 [num_segments]. The sums
+    are of ones, exact in any order, so they are the same on every run."""
     ones = torch.ones(segment_ids.shape, dtype=torch.float32, device=segment_ids.device)
     if mask is not None:
         ones = torch.where(mask, ones, 0.0)

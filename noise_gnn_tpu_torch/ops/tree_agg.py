@@ -10,28 +10,36 @@ those edges is a reshape and a masked reduction, and the reverse direction
 
 :class:`TreeTopo` is the edge-structure argument the conv layers accept in
 place of a ``[2, E]`` edge list, with the same numbers as the edge-list path
-on ``TreeBatch.flat_edges()``. The JAX class also carries a small list of
-extra (rewired) edges; that branch serves the rewiring pipelines of a later
-slice and raises "not yet ported" here.
+on ``TreeBatch.flat_edges()``.
+
+A rewired graph (``augment/rewire.py::topk_rewire_tree``) is the structural
+edges with a keep-mask (removals) plus a small list of extra edges
+(additions). The extras go through :func:`~.scatter.segment_sum`,
+so their sums, and the gradients of their gathers, come out the same on
+every run of the card.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .scatter import fast_take, segment_count, segment_sum
+
 
 class TreeTopo:
     """Flat-tree subgraph topology: the structural child -> parent edges of
-    ``flat_edge_index(batch_size, fanouts)`` masked by ``edge_mask``."""
+    ``flat_edge_index(batch_size, fanouts)`` masked by ``edge_mask``, plus
+    the ``extra_src -> extra_dst`` edges masked by ``extra_mask``."""
 
     def __init__(self, batch_size: int, fanouts: tuple[int, ...], edge_mask: torch.Tensor,
-                 extra_src=None, extra_dst=None, extra_mask=None):
-        if extra_src is not None or extra_dst is not None or extra_mask is not None:
-            raise NotImplementedError(
-                "TreeTopo extra (rewired) edges are not yet ported to noise_gnn_tpu_torch")
+                 extra_src: torch.Tensor | None = None, extra_dst: torch.Tensor | None = None,
+                 extra_mask: torch.Tensor | None = None):
         self.batch_size = int(batch_size)
         self.fanouts = tuple(int(f) for f in fanouts)
         self.edge_mask = edge_mask
+        self.extra_src = extra_src
+        self.extra_dst = extra_dst
+        self.extra_mask = extra_mask
 
     @property
     def sizes(self) -> list[int]:
@@ -52,14 +60,31 @@ class TreeTopo:
     def num_nodes(self) -> int:
         return sum(self.sizes)
 
+    def parent_of(self, flat_ids: torch.Tensor) -> torch.Tensor:
+        """Structural parent of each flat node id (seeds map to themselves)."""
+        sizes, bases = self.sizes, self.bases
+        parent = flat_ids
+        for d, f in enumerate(self.fanouts):
+            j = flat_ids - bases[d + 1]
+            in_depth = (j >= 0) & (j < sizes[d + 1])
+            parent = torch.where(in_depth, bases[d] + torch.div(j, f, rounding_mode="floor"),
+                                 parent)
+        return parent
+
+    def _routed(self, ids: torch.Tensor) -> torch.Tensor:
+        """``ids`` with the masked extra edges sent to the dead row n."""
+        if self.extra_mask is None:
+            return ids
+        return torch.where(self.extra_mask, ids, torch.full_like(ids, self.num_nodes))
+
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
 
 
 def tree_gather_scatter(x: torch.Tensor, topo: TreeTopo, aggr: str = "mean") -> torch.Tensor:
-    """out[i] = aggr over the in-neighbours (children) of flat node i; 0 for
-    nodes without a valid child. The same numbers as
+    """out[i] = aggr over the in-neighbours (children and extras) of flat
+    node i; 0 for nodes without one. The same numbers as
     ``gather_scatter_<aggr>(x, edge_index, n, edge_mask)`` on the equivalent
     edge list, with no scatter."""
     sizes, bases = topo.sizes, topo.bases
@@ -83,11 +108,23 @@ def tree_gather_scatter(x: torch.Tensor, topo: TreeTopo, aggr: str = "mean") -> 
                            dtype=acc, device=x.device))
     counts.append(torch.zeros(sizes[-1], dtype=torch.float32, device=x.device))
     total = torch.cat(sums, dim=0)
+    count = torch.cat(counts)
+    if topo.extra_src is not None:
+        n_sub = topo.num_nodes
+        msgs = fast_take(x, topo.extra_src).to(acc)
+        dst = topo._routed(topo.extra_dst.long())
+        if aggr == "max":
+            idx = dst[:, None].expand(-1, f_dim)
+            extra = torch.full((n_sub + 1, f_dim), float("-inf"), dtype=acc, device=x.device)
+            extra = extra.scatter_reduce(0, idx, msgs, reduce="amax")[:n_sub]
+            total = torch.maximum(total, extra)
+        else:
+            total = total + segment_sum(msgs, dst, n_sub + 1)[:n_sub]
+        count = count + segment_count(dst, n_sub + 1)[:n_sub]
     if aggr == "max":
         return torch.where(torch.isfinite(total), total, torch.zeros_like(total)).to(x.dtype)
     if aggr == "sum":
         return total.to(x.dtype)
-    count = torch.cat(counts)
     return (total.float() / count.clamp(min=1.0)[:, None]).to(x.dtype)
 
 
@@ -95,7 +132,7 @@ def tree_parent_gather(p: torch.Tensor, topo: TreeTopo) -> tuple[torch.Tensor, t
     """For each flat node as an edge SOURCE: the sum of its out-neighbours'
     rows and its out-degree (``get_uncertainty``'s A^T-style aggregation).
     In the tree every child's one out-edge points to its parent, so this is
-    a structural repeat of the parents' rows."""
+    a structural repeat of the parents' rows, plus the extras' sums."""
     sizes, bases = topo.sizes, topo.bases
     outs = [torch.zeros((sizes[0], p.shape[-1]), dtype=p.dtype, device=p.device)]
     degs = [torch.zeros(sizes[0], dtype=torch.float32, device=p.device)]
@@ -107,4 +144,10 @@ def tree_parent_gather(p: torch.Tensor, topo: TreeTopo) -> tuple[torch.Tensor, t
         off += n_child
         outs.append(torch.where(cm[:, None], rep, torch.zeros_like(rep)))
         degs.append(cm.float())
-    return torch.cat(outs, dim=0), torch.cat(degs)
+    total, deg = torch.cat(outs, dim=0), torch.cat(degs)
+    if topo.extra_src is not None:
+        n_sub = topo.num_nodes
+        src = topo._routed(topo.extra_src.long())
+        total = total + segment_sum(fast_take(p, topo.extra_dst), src, n_sub + 1)[:n_sub]
+        deg = deg + segment_count(src, n_sub + 1)[:n_sub]
+    return total, deg

@@ -1,14 +1,16 @@
-"""Training pipelines: ``PipelineCO``, ``PipelineS`` and ``PipelineCTP``.
+"""Training pipelines: ``PipelineCO``, ``PipelineS``, ``PipelineTE``,
+``PipelineTES``, ``PipelineCTP``, ``PipelineSG`` and ``PipelineA``.
 
 Port of ``noise_gnn_tpu/train/pipelines.py`` for one device: the host data
 (graph, splits, ``flip_label`` noise keyed by (seed, run)), the exact-leaf
 table, the co-teaching loop with paired full-graph eval, the co-teaching +
-consistency (CTP) loop, the baseline loop, checkpoint/resume, ``do_train:
-false`` (load and evaluate), the reinit-retry shell and the run summaries.
-The JAX package's mesh, TP, halo and full-batch branches are not part of it:
-``full_graph: true`` logs and falls back to sampled-tree training (as the JAX
-package does on one device) and ``model_parallel > 1`` raises. ``do_plot``
-raises "not yet ported".
+consistency (CTP) loop, the co-teaching + rewired-contrast (TE) loop, the
+beta x tau grid of TE runs, the selection-analysis loop, the baseline loop,
+checkpoint/resume, ``do_train: false`` (load and evaluate), ``do_plot``,
+the reinit-retry shell and the run summaries. The JAX package's mesh, TP,
+halo and full-batch branches are not part of it: ``full_graph: true`` logs
+and falls back to sampled-tree training (as the JAX package does on one
+device) and ``model_parallel > 1`` raises.
 
 Randomness: the host ``np.random.Generator`` (split batches, label noise)
 is consumed exactly as in the JAX package, so both draw the same epochs'
@@ -28,7 +30,9 @@ import numpy as np
 import torch
 
 from ..eval.inference import FullGraphInference, split_accuracy_fn
+from ..eval.metrics import confusion_matrix
 from ..graph.datasets import load_network
+from ..losses.coteaching import ct_loss
 from ..losses.schedules import forget_rate_schedule
 from ..models import nets
 from ..noise import flip_label, noise_or_not
@@ -36,8 +40,10 @@ from ..ops.leaf_agg import fused_leaf_table, leaf_agg_eligible
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.config import device_of, run_name, validate_config
 from ..utils.logging import MetricsWriter, initialize_logger
+from ..utils.plotting import plot_metrics_file
 from ..utils.profiling import tree_edges_per_batch
 from . import steps as S
+
 
 def not_yet_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to noise_gnn_tpu_torch")
@@ -97,8 +103,6 @@ class BasePipeline:
 
     def __init__(self, config: dict):
         validate_config(config)
-        if config.get("do_plot"):
-            raise not_yet_ported("do_plot: true")
         if int(config.get("model_parallel", 1)) > 1:
             raise ValueError(
                 f"model_parallel={config['model_parallel']} needs a multi-device "
@@ -186,9 +190,10 @@ class BasePipeline:
         gen = torch.Generator(device=self.device).manual_seed(0)
         return S.state_tree(S.init_state(gen, spec, self.make_optimizer, self.device))
 
-    def _save_ckpt(self, path: str, states, run: int, epoch: int, attempt: int) -> None:
+    def _save_ckpt(self, path: str, states, run: int, epoch: int, attempt: int,
+                   **meta) -> None:
         save_checkpoint(path, tuple(S.state_tree(s) for s in states),
-                        self._ckpt_meta(run, epoch, attempt))
+                        {**self._ckpt_meta(run, epoch, attempt), **meta})
 
     def _try_resume(self, ckpt_path: str, spec, n_states: int = 2):
         """Load the states and positions if ``resume`` is set and the bundle
@@ -255,11 +260,12 @@ class BasePipeline:
             self.logger.info(f"   precomputed '{kind}' x||agg(x) table")
         return self._leaf_tables[kind]
 
-    def epoch_seed_matrix(self, idx: np.ndarray, batch_size: int):
+    def epoch_seed_matrix(self, idx: np.ndarray, batch_size: int, shuffle: bool = True):
         """All of an epoch's padded seed batches as [nsteps, B] device
         tensors (seeds int64, mask bool); consumes the host rng exactly as
-        the JAX package does."""
-        idx = self.rng.permutation(idx)
+        the JAX package does (``shuffle=False``: in order, no draw)."""
+        if shuffle:
+            idx = self.rng.permutation(idx)
         n = idx.shape[0]
         nsteps = max(-(-n // batch_size), 1)
         pad = nsteps * batch_size - n
@@ -396,6 +402,69 @@ class BasePipeline:
                 arr[i, max_e - len(p):] = np.asarray(p, np.float32)
         np.save(os.path.join(pure_dir, f"{self.output_name}.npy"), arr)
 
+    def _loop_pair(self, spec, tag: str, run_epoch) -> RunSummary:
+        """The multi-run loop of two nets trained together (the JAX
+        package's CTP and TE loops): each epoch ``run_epoch(spec, s1, s2,
+        seeds, masks, epoch)`` returns the summed metrics, then both nets
+        are evaluated as a pair; records ``epoch_<tag>``, checkpoints under
+        ``<tag>``, summary ``<tag>``."""
+        c = self.config
+        evaluate_pair = self.make_eval_pair(spec)
+        train_idx = self.split_idx["train"]
+        bs = int(c["batch_size"])
+        ckpt_every, ckpt_path = self._ckpt_setup(tag)
+        states, start_run, start_epoch, meta = self._try_resume(ckpt_path, spec)
+        s1, s2 = states if states is not None else (None, None)
+        best_accs, test_hists, reinits = [], [], []
+        for run in range(start_run, int(c["num_runs"])):
+            if self.reflip_per_run:
+                self._flip_labels(run)  # (seed, run)-keyed: pairs the A/B
+            attempt = int(meta.get("attempt", 0)) if run == start_run else 0
+            while True:
+                resumed_partial = start_epoch > 0
+                if s1 is None:
+                    s1, s2 = self.init_state(spec), self.init_state(spec)
+                best = 0.0
+                run_pure, run_test = [], []
+                for epoch in range(start_epoch, int(c["max_epochs"])):
+                    seeds, masks = self.epoch_seed_matrix(train_idx, bs)
+                    nb = seeds.shape[0]
+                    t_train = time.perf_counter()
+                    agg = run_epoch(spec, s1, s2, seeds, masks, epoch)
+                    rec = self._fetch_metrics(agg, nb)  # device sync: train done
+                    t_train = time.perf_counter() - t_train
+                    t_eval = time.perf_counter()
+                    acc1, acc2 = evaluate_pair(s1.params, s2.params)
+                    t_eval = time.perf_counter() - t_eval
+                    best = max(best, acc1["test"], acc2["test"])
+                    run_test.append(max(acc1["test"], acc2["test"]))
+                    run_pure.append((rec["pure_ratio_1"], rec["pure_ratio_2"]))
+                    self.metrics.write(
+                        event=f"epoch_{tag}", run=run, epoch=epoch, **rec,
+                        epoch_train_s=t_train, epoch_eval_s=t_eval,
+                        val_acc_1=acc1["valid"], val_acc_2=acc2["valid"],
+                        test_acc_1=acc1["test"], test_acc_2=acc2["test"],
+                    )
+                    if ckpt_every and (epoch + 1) % ckpt_every == 0:
+                        self._save_ckpt(ckpt_path, (s1, s2), run, epoch, attempt)
+                    if c["epoch_logger"] and not ((epoch + 1) % 5):
+                        self.logger.info(
+                            f"   Train epoch {epoch + 1}/{c['max_epochs']} --- "
+                            f"v1: {acc1['valid']:.3f} v2: {acc2['valid']:.3f} "
+                            f"tst1: {acc1['test']:.3f} tst2: {acc2['test']:.3f}")
+                self.logger.info(f"   RUN {run + 1} - best test acc: {best:.3f}")
+                s1, s2, start_epoch = None, None, 0
+                if self._degen_retry(run, attempt, run_pure, best, resumed_partial):
+                    attempt += 1
+                    continue
+                break
+            # resumed at start_epoch >= max_epochs, the epoch loop never ran
+            # and `best` stays 0.0; the JAX package records it as it is
+            best_accs.append(best)
+            test_hists.append(run_test)
+            reinits.append(attempt)
+        return self._report_runs(tag, best_accs, test_hists, reinits)
+
     def _loop_baseline(self):
         """Plain CE / backward-correction baseline on the module_compare net
         (reference train(), src/pipeline.py:144-173)."""
@@ -463,6 +532,10 @@ class PipelineCO(BasePipeline):
             results["nalgo"] = self._loop_ct()
         if c["train_type"] in ("baseline", "both"):
             results["baseline"] = self._loop_baseline()
+        if c.get("do_plot"):
+            out = plot_metrics_file(self.metrics.path)
+            if out:
+                self.logger.info(f"   plot saved to {out}")
         return results
 
     def _load_and_eval(self):
@@ -570,6 +643,49 @@ class PipelineS(PipelineCO):
     reflip_per_run = False
 
 
+class PipelineTE(BasePipeline):
+    """sagePL co-teaching + top-k-rewire contrast after ct_tk epochs, both
+    nets under one joint loss (JAX package pipelines.py:979-1081; reference
+    PipelineTE, src/pipeline_test.py)."""
+
+    schedule_variant = "ogb"
+
+    def loop(self):
+        """train_type dispatch (reference src/pipeline_test.py:235,290):
+        'nalgo' / 'baseline' return that branch's (mean, std); 'both' returns
+        a dict with both."""
+        c = self.config
+        results = {}
+        if c["train_type"] in ("nalgo", "both"):
+            results["nalgo"] = self._loop_te()
+        if c["train_type"] in ("baseline", "both"):
+            results["baseline"] = self._loop_baseline()
+        return results if len(results) > 1 else next(iter(results.values()))
+
+    def _loop_te(self):
+        c = self.config
+        kw = dict(algo="codi" if c["algo_type"] == "codi" else "coteaching",
+                  co_lambda=float(c["co_lambda"]), spl_cont_beta=float(c["spl_cont_beta"]),
+                  spl_rewire_rate=float(c["spl_rewire_rate"]),
+                  spl_noise_rate_pos=float(c["spl_noise_rate_pos"]),
+                  spl_noise_rate_neg=float(c["spl_noise_rate_neg"]))
+
+        def run_epoch(spec, s1, s2, seeds, masks, epoch):
+            return S.te_epoch(spec, s1, s2, self.data, seeds, masks, self.gen,
+                              float(self.rate_schedule[epoch]), self.fanouts,
+                              use_contrast=epoch > int(c["ct_tk"]), **kw)
+
+        return self._loop_pair(self.spec_for(), "te", run_epoch)  # sagePL
+
+
+class PipelineTES(PipelineTE):
+    """Small-graph TE (reference src/pipeline_test_s.py): the 'small' forget
+    schedule, labels flipped once at init."""
+
+    schedule_variant = "small"
+    reflip_per_run = False
+
+
 class PipelineCTP(BasePipeline):
     """Co-teaching + uncertainty-weighted FixMatch consistency on sagePL
     (JAX package pipelines.py:1092-1179; reference PipelineCTP,
@@ -590,63 +706,119 @@ class PipelineCTP(BasePipeline):
         return results if len(results) > 1 else next(iter(results.values()))
 
     def _loop_ctp(self):
+        spl_noise = float(self.config.get("spl_noise", 0.1))
+
+        def run_epoch(spec, s1, s2, seeds, masks, epoch):
+            return S.ctp_epoch(spec, s1, s2, self.data, seeds, masks, self.gen,
+                               float(self.rate_schedule[epoch]), self.fanouts,
+                               use_cr=epoch > 0, beta=1.0, spl_noise=spl_noise)
+
+        return self._loop_pair(self.spec_for(), "ctp", run_epoch)  # sagePL
+
+
+class PipelineSG(BasePipeline):
+    """Grid search over spl_cont_beta x ct_tau, one ``PipelineTES`` run per
+    cell (JAX package pipelines.py:1464-1495; reference PipelineSG,
+    src/pipeline_sgrid.py:176-241)."""
+
+    schedule_variant = "small"
+
+    def loop(self):
         c = self.config
-        spec = self.spec_for()  # sagePL
-        spl_noise = float(c.get("spl_noise", 0.1))
-        evaluate_pair = self.make_eval_pair(spec)
+        results = []
+        for beta in c.get("grid_beta", [1.0]):
+            for tau in c.get("grid_tau", [0.2]):
+                # one nalgo run per cell: the cells compare hyperparameters,
+                # not algorithm against baseline
+                sub = dict(c, spl_cont_beta=float(beta), ct_tau=float(tau), num_runs=1,
+                           do_plot=False, train_type="nalgo")
+                mean, std = PipelineTES(sub).loop()
+                results.append({"beta": float(beta), "tau": float(tau), "acc": mean,
+                                "std": std})
+                self.logger.info(f"   grid beta={beta} tau={tau} -> {mean:.3f}")
+        results.sort(key=lambda r: -r["acc"])
+        for r in results[:12]:
+            self.logger.info(f"   top: beta={r['beta']} tau={r['tau']} acc={r['acc']:.3f}")
+        self.metrics.write(event="grid_results", results=results)
+        return results
+
+
+class PipelineA(BasePipeline):
+    """Co-teaching instrumented with selection-quality analysis: per epoch,
+    net 1's accuracy on the train seeds its selection keeps and on those it
+    rejects; the best-validation params saved; the confusion matrix of the
+    best params on the test split (JAX package pipelines.py:1498-1587;
+    reference PipelineA, src/pipeline_analysis.py). As in the JAX package it
+    trains the config's module with the co-teaching epoch."""
+
+    schedule_variant = "small"
+
+    def loop(self):
+        c = self.config
+        spec = self.spec_for()
+        exact = self.exact_leaf_on(spec)
+        evaluate = self.make_eval(spec)
+        eval_fn = S.make_eval_fn(spec)
+        edge_index = torch.from_numpy(self.graph.edge_index).to(self.device).long()
         train_idx = self.split_idx["train"]
         bs = int(c["batch_size"])
-        ckpt_every, ckpt_path = self._ckpt_setup("ctp")
-        states, start_run, start_epoch, meta = self._try_resume(ckpt_path, spec)
-        s1, s2 = states if states is not None else (None, None)
-        best_accs, test_hists, reinits = [], [], []
-        for run in range(start_run, int(c["num_runs"])):
-            if self.reflip_per_run:
-                self._flip_labels(run)  # (seed, run)-keyed: pairs the A/B
-            attempt = int(meta.get("attempt", 0)) if run == start_run else 0
-            while True:
-                resumed_partial = start_epoch > 0
-                if s1 is None:
-                    s1, s2 = self.init_state(spec), self.init_state(spec)
-                best = 0.0
-                run_pure, run_test = [], []
-                for epoch in range(start_epoch, int(c["max_epochs"])):
-                    seeds, masks = self.epoch_seed_matrix(train_idx, bs)
-                    nb = seeds.shape[0]
-                    t_train = time.perf_counter()
-                    agg = S.ctp_epoch(spec, s1, s2, self.data, seeds, masks, self.gen,
-                                      float(self.rate_schedule[epoch]), self.fanouts,
-                                      use_cr=epoch > 0, beta=1.0, spl_noise=spl_noise)
-                    rec = self._fetch_metrics(agg, nb)  # device sync: train done
-                    t_train = time.perf_counter() - t_train
-                    t_eval = time.perf_counter()
-                    acc1, acc2 = evaluate_pair(s1.params, s2.params)
-                    t_eval = time.perf_counter() - t_eval
-                    best = max(best, acc1["test"], acc2["test"])
-                    run_test.append(max(acc1["test"], acc2["test"]))
-                    run_pure.append((rec["pure_ratio_1"], rec["pure_ratio_2"]))
-                    self.metrics.write(
-                        event="epoch_ctp", run=run, epoch=epoch, **rec,
-                        epoch_train_s=t_train, epoch_eval_s=t_eval,
-                        val_acc_1=acc1["valid"], val_acc_2=acc2["valid"],
-                        test_acc_1=acc1["test"], test_acc_2=acc2["test"],
-                    )
-                    if ckpt_every and (epoch + 1) % ckpt_every == 0:
-                        self._save_ckpt(ckpt_path, (s1, s2), run, epoch, attempt)
-                    if c["epoch_logger"] and not ((epoch + 1) % 5):
-                        self.logger.info(
-                            f"   Train epoch {epoch + 1}/{c['max_epochs']} --- "
-                            f"v1: {acc1['valid']:.3f} v2: {acc2['valid']:.3f} "
-                            f"tst1: {acc1['test']:.3f} tst2: {acc2['test']:.3f}")
-                self.logger.info(f"   RUN {run + 1} - best test acc: {best:.3f}")
-                s1, s2, start_epoch = None, None, 0
-                if self._degen_retry(run, attempt, run_pure, best, resumed_partial):
-                    attempt += 1
-                    continue
-                break
-            # resumed at start_epoch >= max_epochs, the epoch loop never ran
-            # and `best` stays 0.0; the JAX package records it as it is
-            best_accs.append(best)
-            test_hists.append(run_test)
-            reinits.append(attempt)
-        return self._report_runs("ctp", best_accs, test_hists, reinits)
+        ckpt_every, ckpt_path = self._ckpt_setup("a")
+        states, _, start_epoch, meta = self._try_resume(ckpt_path, spec)
+        best_path = f"{c['out_dir']}/models/analysis{self.output_name}_best"
+        if states is not None:
+            s1, s2 = states
+            best_val = float(meta.get("best_val", 0.0))
+            best_params = s1.params
+            if os.path.exists(best_path + ".npz"):
+                best_params, _ = load_checkpoint(best_path, s1.params)
+        else:
+            s1, s2 = self.init_state(spec), self.init_state(spec)
+            best_val = 0.0
+            best_params = s1.params
+        # the loop trains s1.params in place: keep a copy, not an alias
+        best_params = _detached(best_params)
+        for epoch in range(start_epoch, int(c["max_epochs"])):
+            fr = float(self.rate_schedule[epoch])
+            seeds, masks = self.epoch_seed_matrix(train_idx, bs)
+            S.ct_epoch(spec, s1, s2, self.data_for(spec), seeds, masks, self.gen, fr,
+                       self.fanouts, exact_leaf=exact)
+            # selection-quality probes on the train set, batch by batch in order
+            logits = eval_fn(s1.params, self.data.x, edge_index)
+            logits2 = eval_fn(s2.params, self.data.x, edge_index)
+            counts = torch.zeros(4, dtype=torch.int64, device=self.device)
+            for b_seeds, b_mask in zip(*self.epoch_seed_matrix(train_idx, bs, shuffle=False)):
+                o1 = logits[b_seeds]
+                out = ct_loss(o1, logits2[b_seeds], self.data.yhn[b_seeds], fr,
+                              self.data.clean[b_seeds], sample_mask=b_mask)
+                right = o1.argmax(dim=-1) == self.data.y[b_seeds]
+                counts += torch.stack([(right & out.keep_1).sum(), out.keep_1.sum(),
+                                       (right & out.noisy_1).sum(), out.noisy_1.sum()])
+            clean_ok, clean_n, noisy_ok, noisy_n = counts.tolist()
+            acc = evaluate(s1.params)
+            if acc["valid"] > best_val:
+                best_val = acc["valid"]
+                best_params = _detached(s1.params)
+                save_checkpoint(best_path, s1.params, {"epoch": epoch, "val_acc": acc["valid"]})
+            self.metrics.write(
+                event="epoch_analysis", epoch=epoch,
+                clean_sel_acc=clean_ok / max(clean_n, 1),
+                noisy_sel_acc=noisy_ok / max(noisy_n, 1),
+                val_acc=acc["valid"], test_acc=acc["test"],
+            )
+            if ckpt_every and (epoch + 1) % ckpt_every == 0:
+                self._save_ckpt(ckpt_path, (s1, s2), 0, epoch, 0, best_val=best_val)
+        # confusion matrix of the best params (reference pipeline_analysis.py:227)
+        pred = eval_fn(best_params, self.data.x, edge_index).argmax(dim=-1).cpu().numpy()
+        test = self.split_idx["test"]
+        cm = confusion_matrix(self.graph.y[test], pred[test], self.graph.num_classes)
+        np.save(f"{c['out_dir']}/metrics/confusion_{self.output_name}.npy", cm)
+        self.logger.info(f"   best val {best_val:.3f}; confusion matrix saved")
+        return {"best_val": best_val, "confusion": cm}
+
+
+def _detached(params: dict) -> dict:
+    """A copy of a params nest that later optimizer steps do not change."""
+    out = {"convs": [{k: v.detach().clone() for k, v in p.items()} for p in params["convs"]]}
+    if "noise" in params:
+        out["noise"] = params["noise"].detach().clone()
+    return out

@@ -2,8 +2,9 @@
 
 Port of these parts of ``noise_gnn_tpu/train/steps.py``: ``GraphData``,
 ``_sample_tree``, ``TrainState``/``init_state``, ``ct_epoch_fn``,
-``make_baseline_epoch``, ``_flat_subgraph``, ``_ctp_step_math`` and
-``make_ctp_epoch``. Where JAX scans a jitted step
+``make_baseline_epoch``, ``_flat_subgraph``, ``_ctp_step_math``,
+``make_ctp_epoch``, ``_te_step_math``, ``make_te_epoch`` and
+``make_eval_fn``. Where JAX scans a jitted step
 over the epoch's seed batches, the port runs a Python loop of eager steps:
 sample the tree on the device, gather its features, forward, loss,
 backward, optimizer step. Per-step metrics are added into one device
@@ -17,7 +18,10 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..augment.features import shuffle_pos
+from ..augment.rewire import topk_rewire_tree
 from ..losses.consistency import fix_cr, get_uncertainty, neighbor_align
+from ..losses.contrastive import bce_expert_loss, discriminator_innerprod
 from ..losses.coteaching import backward_correction, codi_loss, cross_entropy, ct_loss
 from ..models import nets
 from ..ops.sampler import sample_khop_tree
@@ -275,3 +279,113 @@ def ctp_epoch(spec: nets.NetSpec, s1: TrainState, s2: TrainState, data: GraphDat
             _acc_count(o2.detach(), yt, b_mask).float(),
         ])
     return dict(zip(CTP_METRICS, tot))
+
+
+# ----------------------------------- sagePL co-teaching + rewired contrast (TE)
+
+
+def te_contrast_loss(spec: nets.NetSpec, p1: dict, p2: dict, x_sub, n_id, h1, h2, noisy_1,
+                     noisy_2, pos_topo: TreeTopo, neg_topo: TreeTopo, gen: torch.Generator,
+                     bsz: int, spl_noise_rate_pos: float = 0.1,
+                     spl_noise_rate_neg: float = 0.1):
+    """The contrastive terms (lc1, lc2) of a TE step given its rewired
+    topologies (the ``use_contrast`` branch of JAX ``_te_step_math``): each
+    net's pure pass over the positive graph and noisy pass over the
+    negative graph, on row-shuffled features (``shuffle_pos``), scored
+    against its own pure hidden ``h1``/``h2`` by inner products, with the
+    BCE means over the seeds that net's selection rejected."""
+    n_sub = x_sub.shape[0]
+
+    def hidden(p, x, topo, rate, branch):
+        return nets.apply(spec, p, x, topo, num_nodes=n_sub, train=True, gen=gen, n_id=n_id,
+                          noise_rate=rate, branch=branch)[f"h_{branch}"]
+
+    hedge1 = hidden(p1, x_sub, pos_topo, spl_noise_rate_pos, "pure")
+    hedge2 = hidden(p2, x_sub, pos_topo, spl_noise_rate_pos, "pure")
+    new_x = shuffle_pos(gen, x_sub, spl_noise_rate_neg)
+    hneg1 = hidden(p1, new_x, neg_topo, spl_noise_rate_neg, "noisy")
+    hneg2 = hidden(p2, new_x, neg_topo, spl_noise_rate_neg, "noisy")
+    lp1, ln1 = discriminator_innerprod(h1[:bsz], hedge1[:bsz], hneg1[:bsz])
+    lp2, ln2 = discriminator_innerprod(h2[:bsz], hedge2[:bsz], hneg2[:bsz])
+    return (bce_expert_loss(lp1, ln1, noisy_1, noisy_1),
+            bce_expert_loss(lp2, ln2, noisy_2, noisy_2))
+
+
+def te_step_loss(spec: nets.NetSpec, p1: dict, p2: dict, data: GraphData, seeds, mask,
+                 gen: torch.Generator, forget_rate, fanouts: tuple[int, ...],
+                 algo: str = "coteaching", co_lambda: float = 0.1,
+                 use_contrast: bool = False, spl_cont_beta: float = 1.0,
+                 spl_rewire_rate: float = 0.1, spl_noise_rate_pos: float = 0.1,
+                 spl_noise_rate_neg: float = 0.1):
+    """Loss of one TE step (JAX ``_te_step_math``): sample the tree, run
+    both sagePL nets' pure passes on its flat subgraph, co-teaching (or
+    CoDis) on the pure logits; with ``use_contrast``, rewire the subgraph
+    from net 1's hidden (``topk_rewire_tree``) and add spl_cont_beta x
+    :func:`te_contrast_loss`. Returns (loss, (ct, o1, o2, lc1, lc2))."""
+    tb = sample_khop_tree(gen, data.csr, seeds, fanouts, mask)
+    x_sub, n_id, _, topo = _flat_subgraph(data, tb)
+    n_sub, bsz = x_sub.shape[0], tb.batch_size
+    yb, cb = data.yhn[seeds], data.clean[seeds]
+
+    def pure(p):
+        return nets.apply(spec, p, x_sub, topo, num_nodes=n_sub, train=True, gen=gen,
+                          n_id=n_id, noise_rate=spl_noise_rate_pos, branch="pure")
+
+    out1, out2 = pure(p1), pure(p2)
+    o1, o2 = out1["z_pure"][:bsz], out2["z_pure"][:bsz]
+    if algo == "codi":
+        ct = codi_loss(o1, o2, yb, forget_rate, cb, co_lambda, mask)
+    else:
+        ct = ct_loss(o1, o2, yb, forget_rate, cb, mask)
+    loss = ct.loss_1 + ct.loss_2
+    lc1 = lc2 = torch.zeros((), dtype=torch.float32, device=x_sub.device)
+    if use_contrast:
+        pos_topo, neg_topo = topk_rewire_tree(out1["h_pure"], topo, spl_rewire_rate)
+        lc1, lc2 = te_contrast_loss(spec, p1, p2, x_sub, n_id, out1["h_pure"], out2["h_pure"],
+                                    ct.noisy_1, ct.noisy_2, pos_topo, neg_topo, gen, bsz,
+                                    spl_noise_rate_pos, spl_noise_rate_neg)
+        loss = loss + spl_cont_beta * (lc1 + lc2)
+    return loss, (ct, o1, o2, lc1, lc2)
+
+
+TE_METRICS = ("loss_1", "loss_2", "pure_ratio_1", "pure_ratio_2", "loss_cont_1",
+              "loss_cont_2", "correct_1", "correct_2")
+
+
+def te_epoch(spec: nets.NetSpec, s1: TrainState, s2: TrainState, data: GraphData,
+             seeds: torch.Tensor, masks: torch.Tensor, gen: torch.Generator,
+             forget_rate: float, fanouts: tuple[int, ...], **kw) -> dict:
+    """One TE epoch over seed batches [nsteps, B] (JAX ``make_te_epoch``;
+    ``kw`` as :func:`te_step_loss`). The JAX package trains both nets under
+    one Adam over the pair; Adam is per leaf, so the two states here take
+    the same steps. Returns the per-step metrics SUMMED (device scalars)."""
+    fr = torch.tensor(forget_rate, dtype=torch.float32, device=seeds.device)
+    tot = torch.zeros(len(TE_METRICS), dtype=torch.float32, device=seeds.device)
+    for b_seeds, b_mask in zip(seeds, masks):
+        loss, (ct, o1, o2, lc1, lc2) = te_step_loss(spec, s1.params, s2.params, data, b_seeds,
+                                                    b_mask, gen, fr, fanouts, **kw)
+        _step((s1, s2), loss)
+        yt = data.y[b_seeds]
+        tot += torch.stack([
+            ct.loss_1.detach(), ct.loss_2.detach(), ct.pure_ratio_1, ct.pure_ratio_2,
+            lc1.detach(), lc2.detach(),
+            _acc_count(o1.detach(), yt, b_mask).float(),
+            _acc_count(o2.detach(), yt, b_mask).float(),
+        ])
+    return dict(zip(TE_METRICS, tot))
+
+
+# ------------------------------------------------------------------- eval
+
+
+def make_eval_fn(spec: nets.NetSpec):
+    """Full-graph forward on an edge list -> logits (JAX ``make_eval_fn``);
+    for sagePL the plain conv stack's ``z_pure``."""
+
+    @torch.no_grad()
+    def logits_fn(params: dict, x: torch.Tensor, edge_index: torch.Tensor) -> torch.Tensor:
+        if spec.module == "sagePL":
+            return nets.apply(spec, params, x, edge_index, branch="pure")["z_pure"]
+        return nets.apply(spec, params, x, edge_index)["logits"]
+
+    return logits_fn

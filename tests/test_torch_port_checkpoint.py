@@ -2,7 +2,7 @@
 
 The bundle round-trips and refuses a template of other leaves;
 kill-and-resume gives per-epoch metrics identical to the uninterrupted run
-for the co-teaching and the CTP loops (the JAX package's own test,
+for the co-teaching, the CTP and the TE loops (the JAX package's own test,
 tests/test_checkpoint.py:109, for the port); resuming a run whose last
 epoch is already in the checkpoint reproduces the JAX package's record of
 a best of 0.0; and load-and-eval of the same params gives the JAX
@@ -31,12 +31,16 @@ from noise_gnn_tpu_torch.train import steps as TS
 from noise_gnn_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from noise_gnn_tpu_torch.utils.config import DEFAULTS as TDEFAULTS
 
+torch.set_num_threads(1)
+
 BASE = dict(dataset_name="cora", synthetic_scale=40, num_runs=1, batch_size=64,
             hidden_size=16, num_layers=2, nbr_neighbors=[3, 2], train_type="nalgo",
             algo_type="coteaching", seed=11, epoch_logger=False)
 FAMILIES = {
     "co": ("epoch_ct", {}),
     "ctp": ("epoch_ctp", dict(module="sagePL", algo_type="ctp")),
+    # PipelineTES; the rewired contrast in the last epoch, after the resume
+    "te": ("epoch_te", dict(module="sagePL", what="_test3", ct_tk=2)),
 }
 
 
@@ -91,7 +95,8 @@ def _metrics(out_dir, event):
     return {(r["run"], r["epoch"]): r for r in rows if r.get("event") == event}
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("family", [pytest.param(f, marks=pytest.mark.slow) if f == "te" else f
+                                    for f in sorted(FAMILIES)])
 def test_kill_and_resume_reproduces_metrics(tmp_path, family):
     """A run killed after epoch 1 and resumed to epoch 4 finishes with the
     uninterrupted run's per-epoch metrics, exactly: the bundle carries the
@@ -113,7 +118,7 @@ def test_kill_and_resume_reproduces_metrics(tmp_path, family):
             assert got[pos][k] == want[pos][k], (pos, k)
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("family", ["co", "ctp"])
 def test_resume_past_last_epoch_matches_jax(tmp_path, family):
     """Resuming from the checkpoint of the last epoch (start_epoch >=
     max_epochs) runs no epoch, and the JAX package appends a best of 0.0

@@ -33,6 +33,8 @@ from noise_gnn_tpu_torch.ops import tree_agg as ttree
 from noise_gnn_tpu_torch.ops.sampler import flat_edge_index as t_flat_edge_index
 from noise_gnn_tpu_torch.train import steps as TS
 
+torch.set_num_threads(1)
+
 LR = 1e-3
 FANOUTS = (3, 3)
 N, F, C, B, STEPS = 90, 10, 4, 16, 3
@@ -72,8 +74,12 @@ def test_tree_parent_gather_and_flat_edges_match():
     np.testing.assert_array_equal(ttot.numpy(), np.asarray(jtot))
     np.testing.assert_array_equal(tdeg.numpy(), np.asarray(jdeg))
     np.testing.assert_array_equal(t_flat_edge_index(4, (3, 3)), j_flat_edge_index(4, (3, 3)))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttree.TreeTopo(4, (3, 3), torch.from_numpy(mask), extra_src=torch.zeros(2))
+    # extra edges that are all masked out change nothing
+    zeros = torch.zeros(3, dtype=torch.long)
+    masked = ttree.TreeTopo(4, (3, 3), torch.from_numpy(mask), zeros, zeros,
+                            torch.zeros(3, dtype=torch.bool))
+    mtot, mdeg = ttree.tree_parent_gather(torch.from_numpy(p), masked)
+    assert torch.equal(mtot, ttot) and torch.equal(mdeg, tdeg)
 
 
 @pytest.mark.parametrize("fanouts", [(3, 2), ()])

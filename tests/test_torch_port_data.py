@@ -24,6 +24,8 @@ from noise_gnn_tpu_torch.graph import splits as tsplits
 from noise_gnn_tpu_torch.losses.schedules import forget_rate_schedule as t_schedule
 from noise_gnn_tpu_torch.utils.profiling import tree_edges_per_batch as t_tepb
 
+torch.set_num_threads(1)
+
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
                    "real_formats")
 

@@ -34,6 +34,8 @@ from noise_gnn_tpu_torch.ops.gather_ring import (
     last_positions,
 )
 
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 E, P, F, NBLK = 64, 2, 128, 40
 

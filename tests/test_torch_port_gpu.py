@@ -1,7 +1,7 @@
 """Tests of the port that need a CUDA card: the CUDA SpMM and the
-gather-ring kernel against their plain versions, and the main path on a
-small graph. They skip where no card is
-visible. This file imports neither JAX nor the JAX package, so on a card
+gather-ring kernel against their plain versions, the main path on a small
+graph, and the rewire's top-k and the sorted segment sum against the CPU.
+They skip where no card is visible. This file imports neither JAX nor the JAX package, so on a card
 without JAX it runs without the repo's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
@@ -16,6 +16,8 @@ import torch
 from noise_gnn_tpu_torch.graph.containers import CSRGraph
 from noise_gnn_tpu_torch.ops import gather_ring as gr
 from noise_gnn_tpu_torch.ops import spmm
+
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -206,3 +208,55 @@ def test_gather_ring_kernel_refuses(cuda):
     idx += 10  # the same tensor, changed in place
     with pytest.raises(ValueError, match="outside"):
         gr.gather_ring(x3, idx, 2, 64, 1)
+
+
+@pytest.mark.gpu
+def test_stable_topk_and_tree_rewire_match_cpu(cuda):
+    """The stable top-k helper and ``hier_topk`` on tied values with signed
+    zeros and -inf, and ``topk_rewire_tree`` on exact-arithmetic rows (four
+    entries of +-0.5, from a pool of 40: every similarity a multiple of
+    0.25, ties everywhere): bit-equal to the CPU, order included."""
+    from chip_smoke import exact_rows
+    from noise_gnn_tpu_torch.augment.rewire import topk_rewire_tree
+    from noise_gnn_tpu_torch.ops import sddmm
+    from noise_gnn_tpu_torch.ops.tree_agg import TreeTopo
+
+    rng = np.random.default_rng(12)
+    x = (rng.integers(-4, 5, 200_000) * 0.25).astype(np.float32)
+    x[rng.random(x.shape[0]) < 0.1] = -0.0
+    x[rng.random(x.shape[0]) < 0.05] = -np.inf
+    for fn, k in ((sddmm.stable_topk, 5000), (sddmm.hier_topk, 7), (sddmm.hier_topk, 3000)):
+        (cv, ci), (gv, gi) = (fn(torch.from_numpy(x).to(d), k) for d in ("cpu", cuda))
+        assert torch.equal(gi.cpu(), ci)
+        assert torch.equal(gv.cpu().view(torch.int32), cv.view(torch.int32))
+    b, fanouts = 16, (10, 5, 5)
+    mask = torch.from_numpy(rng.random(b * 310) < 0.8)
+    h = torch.from_numpy(exact_rows(rng, b * 311, 16, 40))
+    want = topk_rewire_tree(h, TreeTopo(b, fanouts, mask), 0.1)
+    got = topk_rewire_tree(h.to(cuda), TreeTopo(b, fanouts, mask.to(cuda)), 0.1)
+    for w, g in zip(want, got):
+        for a, c in ((w.edge_mask, g.edge_mask), (w.extra_src, g.extra_src),
+                     (w.extra_dst, g.extra_dst), (w.extra_mask, g.extra_mask)):
+            assert torch.equal(c.cpu(), a)
+
+
+@pytest.mark.gpu
+def test_sorted_segment_sum_is_fixed_order(cuda):
+    """On the card the sorted segment sum (``segment_sum``) adds each segment's rows in index
+    order: bit-equal to the CPU's ``index_add_`` on random floats, and the
+    gradient of ``fast_take`` from a source that requires grad is the same
+    on every call (``index_select``'s own backward adds with atomics)."""
+    from noise_gnn_tpu_torch.ops.scatter import fast_take, segment_sum
+
+    rng = np.random.default_rng(13)
+    ids = torch.from_numpy(rng.integers(0, 300, 200_000))
+    data = torch.from_numpy(rng.standard_normal((200_000, 64)).astype(np.float32))
+    want = torch.zeros(301, 64).index_add_(0, ids, data)
+    got = segment_sum(data.to(cuda), ids.to(cuda), 301)
+    assert torch.equal(got.cpu(), want)
+    grads = []
+    for _ in range(2):
+        x = torch.zeros(300, 64, device=cuda, requires_grad=True)
+        (fast_take(x, ids.to(cuda)) * data.to(cuda)).sum().backward()
+        grads.append(x.grad)
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0].cpu(), want[:300])

@@ -23,6 +23,8 @@ from noise_gnn_tpu_torch.models import nets as tnets
 from noise_gnn_tpu_torch.models.convert import params_from_jax, params_to_jax
 from noise_gnn_tpu_torch.ops.sampler import sample_khop_tree as t_sample
 
+torch.set_num_threads(1)
+
 ATOL = 2e-5
 
 

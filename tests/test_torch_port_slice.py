@@ -27,6 +27,8 @@ from noise_gnn_tpu_torch.models.convert import params_from_jax
 from noise_gnn_tpu_torch.ops.leaf_agg import fused_leaf_table as t_fused
 from noise_gnn_tpu_torch.train import steps as TS
 
+torch.set_num_threads(1)
+
 LR = 1e-3
 FANOUTS = (3, 3)
 N, F, C, B, STEPS = 90, 10, 4, 16, 3

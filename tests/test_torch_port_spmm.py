@@ -26,6 +26,8 @@ from noise_gnn_tpu_torch.ops import scatter as tscatter
 from noise_gnn_tpu_torch.ops import spmm as tspmm
 from noise_gnn_tpu_torch.ops.leaf_agg import fused_leaf_table as t_fused
 
+torch.set_num_threads(1)
+
 # f32 parity: only the summation order differs, so errors are bounded
 # relative to the sum of the summands' magnitudes, |got - want| <= RTOL *
 # agg(|x|) + ATOL (agg = the same mean or sum over the row's in-edges)
