@@ -49,6 +49,19 @@ when every phase passed):
    differs between the devices): summed losses within 1e-5 relative,
    params within 1e-4, and whether each step's rewired topologies agree,
    with the margin of the k-th pick where they do not.
+   Then one H epoch of 4 steps with the pseudo net on, at config_h.yml's
+   widths (sageH 2 x 128 twice and a sage 2 x 128 pseudo net on 128
+   features, 40 classes, fanouts [10, 5], batch 32) on a forest, with
+   exact-arithmetic features (the pseudo net's rewire scores the raw
+   features, so its picks are decided by the tie rule): every step's
+   rewired positive graph equal, summed losses within 1e-5 relative, the
+   three nets' params within 1e-4. And one contrastive finetune epoch of 4
+   steps at config_contrast.yml's widths (sageFC 2 x 128, batch 512) on four
+   given views whose in-degrees are <= the fanouts: summed losses within
+   1e-5 relative, params within 1e-4, except the projection's bias, which
+   feeds a batch norm (its gradient is 0 in exact arithmetic and rounding
+   noise on each device, which Adam turns into steps of up to lr either
+   way): it must stay within 4 x lr of its initial value.
 3. Main path at full width: ``noise_gnn_tpu_torch.main.main`` on
    ``configs/config_products.yml`` with num_runs 1, max_epochs 2,
    reinit_retries 0 (the full synthetic products graph, 2,449,029 nodes,
@@ -122,17 +135,45 @@ when every phase passed):
    around each ``topk_rewire_tree``), peak device memory, both runs'
    validation accuracies, and the time of one rewire block's similarity
    matmul at the f32 precision the rewire needs ('highest') and with TF32.
+8. H and CT paths at full width through ``main``, on the synthetic
+   ogbn-arxiv graph, the SpMM counts reset before and read after each run.
+   H: ``configs/config_h.yml`` (``PipelineH``: sageH 2 x 128 twice and a
+   sage 2 x 128 pseudo net, fanouts [10, 5], batch 512, the full train
+   split of 179 steps; 31,232 flat rows a step, rewired with k2 = 12,492)
+   with num_runs 1, max_epochs 2 (epoch 0 plain, epoch 1 with the pseudo
+   net) and reinit_retries 0; then 1 epoch with ``ckpt_every: 1`` and
+   ``resume: true`` to 2. Losses finite, ``loss_pred`` and ``loss_add`` 0 in
+   epoch 0 and > 0 in epoch 1, the better net's validation above 1/40, the
+   SpMM launched for the leaf table (F = 128, once a run) and the pair eval
+   (F = 256, once an epoch), and the resumed epoch 1's summed losses equal
+   to the uninterrupted run's bit for bit. CT: ``configs/config_contrast.yml``
+   (``PipelineCT``: sageFC 2 x 128, batch 1024) with warmup 2, ct_tk 1 (so
+   the split uses the config's forget rate, 0.45 x 1.1) and max_epochs 4:
+   2 warmup epochs, the split, 2 finetune epochs; then killed at max_epochs
+   3 with ``ckpt_every: 1`` and resumed to 4. Losses finite, the split's
+   clean ids cleaner than the train split, the finetune's best test
+   accuracy above 1/40, the SpMM launched for the leaf table (F = 128), the
+   pair eval (F = 256: 2 warmup epochs and the split) and the single eval
+   (F = 128: the finetune's start, each finetune epoch, the end), and the
+   resumed finetune epoch's summed losses equal to the uninterrupted run's
+   bit for bit. It logs ms per plain and per pseudo H step, the rewire's
+   share of a pseudo step (CUDA events around each ``topk_rewire_tree``), ms
+   per warmup and per finetune step, the views' build time (the edge
+   augmentation on the host), peak device memory, and the whole script's
+   time.
 
 Then it prints one ``{"kernels": [...]}`` line (errors from the full-size
-checks, launches from the main paths; the arxiv rows count the CTP and
-the TE runs'), the ``nvidia-smi`` line and, last,
-``{"ok": true, "device": {...}}``. Details go to ``<out>/report.json``.
+checks, launches from the main paths; the arxiv rows count the CTP, TE, H
+and CT runs', each path's also on its own), the ``nvidia-smi`` line and,
+last, ``{"ok": true, "device": {...}}``. Details go to
+``<out>/report.json``.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import inspect
 import json
 import math
 import shutil
@@ -164,6 +205,8 @@ from noise_gnn_tpu_torch.utils.profiling import (FP32_OPS_PER_S, HBM_BYTES_PER_S
 CONFIG = "configs/config_products.yml"
 CTP_CONFIG = "configs/config_ctp.yml"
 TE_CONFIG = "configs/config_arxiv.yml"
+H_CONFIG = "configs/config_h.yml"
+CT_CONFIG = "configs/config_contrast.yml"
 TE_STEPS = 64  # train batches an epoch in phase 7
 SOURCE = "noise_gnn_tpu_torch/csrc/spmm.cu"
 REPLACES = "noise_gnn_tpu/ops/pallas_spmm.py:147"
@@ -314,6 +357,21 @@ def check_kernel(dev) -> list[dict]:
     return cases
 
 
+def _params_err(pa: dict, pb: dict, skip=()) -> float:
+    """Max abs difference of two JAX-layout params nests, leaves named in
+    ``skip`` ("proj.b") left out."""
+    err = 0.0
+    for ca, cb in zip(pa["convs"], pb["convs"]):
+        err = max([err] + [float(np.abs(ca[k] - cb[k]).max()) for k in ca])
+    for name in ("noise", "proj", "bnl", "act"):
+        if name not in pa:
+            continue
+        pairs = ([(name, pa[name], pb[name])] if name == "noise" else
+                 [(f"{name}.{k}", pa[name][k], pb[name][k]) for k in pa[name]])
+        err = max([err] + [float(np.abs(a - b).max()) for n, a, b in pairs if n not in skip])
+    return err
+
+
 def check_small_path(dev) -> dict:
     """The main path's training and eval functions on a small input, on the
     card against the CPU (where they run the plain SpMM and are held
@@ -361,8 +419,7 @@ def check_small_path(dev) -> dict:
     # gradient differences into steps of up to ~lr, hence params at 1e-4
     loss_err = max(abs(float(m_gpu[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
                    for k in ("loss_1", "loss_2"))
-    param_err = max(float(np.abs(a[k] - b[k]).max()) for pa, pb in zip(p_gpu, p_cpu)
-                    for a, b in zip(pa["convs"], pb["convs"]) for k in a)
+    param_err = max(_params_err(a, b) for a, b in zip(p_gpu, p_cpu))
     # the pair eval of the same (CPU-trained) params on both devices
     logit_err = max((a.cpu() - b).abs().max().item() for a, b in zip(
         infer_gpu.pair(*(params_from_jax(q, dev) for q in p_cpu), x_gpu),
@@ -465,10 +522,7 @@ def check_small_ctp(dev) -> dict:
     m_gpu, p_gpu = run_on(dev)
     m_cpu, p_cpu = run_on(torch.device("cpu"))
     loss_err = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in ("loss_1", "loss_2"))
-    param_err = max(max(float(np.abs(a["noise"] - b["noise"]).max()),
-                        max(float(np.abs(ca[k] - cb[k]).max())
-                            for ca, cb in zip(a["convs"], b["convs"]) for k in ca))
-                    for a, b in zip(p_gpu, p_cpu))
+    param_err = max(_params_err(a, b) for a, b in zip(p_gpu, p_cpu))
     rep = dict(loss_rel_err=loss_err, param_max_abs_err=param_err, cr_term=m_gpu["loss_cr_1"],
                ok=loss_err <= 1e-5 and param_err <= 1e-4 and m_cpu["loss_cr_1"] > 0)
     log(f"  {nsteps} CTP steps with the consistency term, N={n}, E={ei.shape[1]}: summed-"
@@ -598,10 +652,7 @@ def check_small_te(dev) -> dict:
         m_cpu, p_cpu, rw_cpu = run_on(torch.device("cpu"), use_contrast)
         keys = ("loss_1", "loss_2") + (("loss_cont_1", "loss_cont_2") if use_contrast else ())
         loss_err = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in keys)
-        param_err = max(max(float(np.abs(a["noise"] - b["noise"]).max()),
-                            max(float(np.abs(ca[k] - cb[k]).max())
-                                for ca, cb in zip(a["convs"], b["convs"]) for k in ca))
-                        for a, b in zip(p_gpu, p_cpu))
+        param_err = max(_params_err(a, b) for a, b in zip(p_gpu, p_cpu))
         agree = [all(np.array_equal(u[0], v[0]) and np.array_equal(u[3], v[3])
                      and sorted(zip(u[1].tolist(), u[2].tolist()))
                      == sorted(zip(v[1].tolist(), v[2].tolist()))
@@ -624,6 +675,131 @@ def check_small_te(dev) -> dict:
         if not rep["ok"]:
             raise RuntimeError(f"the TE epoch on the card disagrees with the CPU: {rep}")
     return reps
+
+
+def check_small_h(dev) -> dict:
+    """One H epoch of 4 steps with the pseudo net on, at config_h.yml's
+    widths, on the card against the CPU (see phase 2 of the module doc)."""
+    f, c, hidden, fanouts, bs, nsteps = 128, 40, 128, (10, 5), 32, 4
+    ei, roots, n = forest(bs * nsteps, fanouts)
+    rng = np.random.default_rng(8)
+    x = exact_rows(rng, n, f, 4000)
+    y = rng.integers(0, c, n)
+    yhn = np.where(rng.random(n) < 0.3, rng.integers(0, c, n), y)
+    seeds = rng.permutation(roots).reshape(nsteps, bs)
+    masks = np.ones((nsteps, bs), bool)
+    kw = dict(in_size=f, hidden_size=hidden, out_size=c, num_layers=2, dropout=0.0)
+    spec, pseudo_spec = nets.NetSpec(module="sageH", **kw), nets.NetSpec(module="sage", **kw)
+    init = [params_to_jax(nets.init_params(torch.Generator().manual_seed(s), sp))
+            for s, sp in ((1, spec), (2, spec), (3, pseudo_spec))]
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=1e-3)
+
+    def run_on(d):
+        data = steps.GraphData(x=torch.from_numpy(x).to(d), y=torch.from_numpy(y).to(d),
+                               yhn=torch.from_numpy(yhn).to(d),
+                               clean=torch.from_numpy(y == yhn).to(d),
+                               csr=CSRGraph.from_coo(ei, n, d))
+        states = [steps.state_from_params(params_from_jax(q, d), adam) for q in init]
+        rewires = []
+
+        def recording(h, topo, k, **kw):
+            out = rewire.topk_rewire_tree(h, topo, k, **kw)
+            rewires.append(_topo_arrays(out[0]))
+            return out
+
+        steps.topk_rewire_tree = recording
+        try:
+            m = steps.h_epoch(spec, pseudo_spec, *states, data, torch.from_numpy(seeds).to(d),
+                              torch.from_numpy(masks).to(d), torch.Generator(device=d), 0.2,
+                              fanouts, use_pseudo=True, rewire_rate=0.2)
+        finally:
+            steps.topk_rewire_tree = rewire.topk_rewire_tree
+        return ({k: float(v) for k, v in m.items()}, [params_to_jax(s.params) for s in states],
+                rewires)
+
+    m_gpu, p_gpu, rw_gpu = run_on(dev)
+    m_cpu, p_cpu, rw_cpu = run_on(torch.device("cpu"))
+    keys = ("loss_1", "loss_2", "loss_pred", "loss_add")
+    loss_err = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in keys)
+    param_err = [_params_err(a, b) for a, b in zip(p_gpu, p_cpu)]
+    agree = [len(u) == len(v) and all(np.array_equal(a, b) for a, b in zip(u, v))
+             for u, v in zip(rw_gpu, rw_cpu)]
+    rep = dict(loss_rel_err=loss_err, param_max_abs_err=param_err, rewires_agree=agree,
+               loss_pred=m_cpu["loss_pred"], loss_add=m_cpu["loss_add"],
+               ok=(loss_err <= 1e-5 and max(param_err) <= 1e-4 and len(agree) == nsteps
+                   and all(agree) and m_cpu["loss_add"] > 0))
+    log(f"  {nsteps} H steps with the pseudo net, {bs} seeds x fanouts {list(fanouts)} "
+        f"({bs * 61} rows a step, exact-arithmetic features): summed-loss rel err "
+        f"{loss_err:.2e} (tol 1e-5), params max abs err (net 1, 2, pseudo) "
+        f"{['%.2e' % e for e in param_err]} (tol 1e-4), rewired positive graphs equal by "
+        f"step {agree}, loss_pred {m_cpu['loss_pred']:.4f}, loss_add {m_cpu['loss_add']:.4f}")
+    if not rep["ok"]:
+        raise RuntimeError(f"the H epoch on the card disagrees with the CPU: {rep}")
+    return rep
+
+
+def check_small_ct(dev) -> dict:
+    """One contrastive finetune epoch of 4 steps at config_contrast.yml's
+    widths on four given views, on the card against the CPU (see phase 2 of
+    the module doc)."""
+    n, f, c, hidden, fanouts, bs, nsteps = 5_000, 128, 40, 128, (10, 5), 512, 4
+    rng = np.random.default_rng(9)
+
+    def low_degree():
+        deg = rng.integers(0, min(fanouts) + 1, n)
+        return np.stack([rng.integers(0, n, deg.sum()), np.repeat(np.arange(n), deg)])
+
+    graphs = [low_degree() for _ in range(3)]
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    feats = {"orig": x, "edge_s": x, "feat_s": x[:, rng.permutation(f)],
+             "large": x[rng.permutation(n)]}
+    gi = {"orig": 0, "edge_s": 1, "feat_s": 0, "large": 2}
+    y = rng.integers(0, c, n)
+    yhn = np.where(rng.random(n) < 0.45, (y + 1) % c, y)
+    perm = rng.permutation(n)
+    cs, ns = (perm[i * nsteps * bs:(i + 1) * nsteps * bs].reshape(nsteps, bs) for i in (0, 1))
+    cm, nm = np.ones((nsteps, bs), bool), np.ones((nsteps, bs), bool)
+    cm[-1, -37:] = nm[-1, -53:] = False  # padded last batches
+    spec = nets.NetSpec(module="sageFC", in_size=f, hidden_size=hidden, out_size=c,
+                        num_layers=2, dropout=0.0)
+    init = params_to_jax(nets.init_params(torch.Generator().manual_seed(1), spec))
+
+    def run_on(d):
+        data = steps.GraphData(x=torch.from_numpy(x).to(d), y=torch.from_numpy(y).to(d),
+                               yhn=torch.from_numpy(yhn).to(d),
+                               clean=torch.from_numpy(y == yhn).to(d),
+                               csr=CSRGraph.from_coo(graphs[0].astype(np.int32), n, d))
+        views = {v: (torch.from_numpy(feats[v]).to(d),
+                     CSRGraph.from_coo(graphs[gi[v]].astype(np.int32), n, d)) for v in feats}
+        s = steps.state_from_params(params_from_jax(init, d),
+                                    lambda q: torch.optim.Adam(q, lr=5e-4))
+        t = [torch.from_numpy(a).to(d) for a in (cs, cm, ns, nm)]
+        m = steps.contrast_epoch(spec, s, data, views, *t, torch.Generator(device=d), fanouts,
+                                 lam=1.0)
+        return {k: float(v) for k, v in m.items()}, params_to_jax(s.params)
+
+    m_gpu, p_gpu = run_on(dev)
+    m_cpu, p_cpu = run_on(torch.device("cpu"))
+    loss_err = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in ("loss_semi", "loss_cont"))
+    # the projection's bias feeds a batch norm: its gradient is 0 in exact
+    # arithmetic and rounding noise on each device, which Adam turns into
+    # steps of up to lr either way; it is held to that bound instead
+    param_err = _params_err(p_gpu, p_cpu, skip=("proj.b",))
+    bias_moved = max(float(np.abs(p["proj"]["b"] - init["proj"]["b"]).max())
+                     for p in (p_gpu, p_cpu))
+    rep = dict(loss_rel_err=loss_err, param_max_abs_err=param_err, proj_b_moved=bias_moved,
+               loss_semi=m_cpu["loss_semi"], loss_cont=m_cpu["loss_cont"],
+               ok=(loss_err <= 1e-5 and param_err <= 1e-4 and bias_moved <= nsteps * 5e-4 * 1.001))
+    log(f"  {nsteps} contrastive finetune steps on four views, N={n}, batch {bs}, five tree "
+        f"forwards a step: summed-loss rel err {loss_err:.2e} (tol 1e-5), params max abs err "
+        f"{param_err:.2e} (tol 1e-4; the projection's bias, ahead of a batch norm, moved "
+        f"{bias_moved:.2e} <= {nsteps} x lr), loss_semi {m_cpu['loss_semi']:.4f}, loss_cont "
+        f"{m_cpu['loss_cont']:.4f}")
+    if not rep["ok"]:
+        raise RuntimeError(f"the contrastive finetune on the card disagrees with the CPU: {rep}")
+    return rep
 
 
 def pick_margins(h: torch.Tensor, topo: TreeTopo, pos_keep: torch.Tensor, dev) -> dict:
@@ -910,6 +1086,198 @@ def run_te_path(out: Path, dev) -> dict:
     return rep
 
 
+def _timed_rewires(events: list):
+    """A stand-in for ``steps.topk_rewire_tree`` that records CUDA events
+    around each call."""
+    def timed(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = rewire.topk_rewire_tree(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return res
+    return timed
+
+
+def _counting_steps(fn, seen: list):
+    """A stand-in for an epoch function of ``steps`` that records each
+    call's number of steps (its ``seeds`` rows)."""
+    sig = inspect.signature(fn)
+
+    def counted(*args, **kw):
+        seen.append(int(sig.bind(*args, **kw).arguments["seeds"].shape[0]))
+        return fn(*args, **kw)
+    return counted
+
+
+def _resume_check(full: dict, resumed: dict, keys) -> float:
+    """The resumed epoch's summed losses against the uninterrupted run's:
+    the largest relative difference (0.0: bit-equal)."""
+    return max(abs(resumed[k] - full[k]) / max(abs(full[k]), 1e-30) for k in keys)
+
+
+def run_h_path(out: Path) -> dict:
+    """PipelineH at full width through ``main`` (phase 8 of the module doc):
+    2 epochs uninterrupted, then killed after epoch 0 and resumed."""
+    base = load_config(H_CONFIG)
+    base.update(num_runs=1, max_epochs=2, reinit_retries=0)
+    shutil.rmtree(out / "h", ignore_errors=True)
+    ckpt = str(out / "h" / "ckpt")
+    plan = (("full", {}), ("killed", dict(max_epochs=1, ckpt_every=1, ckpt_path=ckpt)),
+            ("resumed", dict(resume=True, ckpt_every=1, ckpt_path=ckpt)))
+    want_counts = {"full": {128: 1, 256: 2}, "killed": {128: 1, 256: 1},
+                   "resumed": {128: 1, 256: 1}}
+    runs, events, seen = {}, [], []
+    h_epoch = steps.h_epoch
+    steps.topk_rewire_tree = _timed_rewires(events)
+    steps.h_epoch = _counting_steps(h_epoch, seen)
+    try:
+        for name, over in plan:
+            events.clear()
+            seen.clear()
+            cfg = dict(copy.deepcopy(base), out_dir=str(out / "h" / name), **over)
+            r = runs[name] = _drive(cfg)  # main: algo_type hpseudo -> PipelineH
+            r["epochs"] = _events(r, "epoch_h")
+            r["rewire_ms"] = [a.elapsed_time(b) for a, b in events]
+            r["steps"] = list(seen)
+            for e in r["epochs"]:
+                log(f"  {name} H epoch {e['epoch']}: train {e['epoch_train_s']:.3f} s, eval "
+                    f"{e['epoch_eval_s']:.3f} s, loss {e['loss_1']:.6f}/{e['loss_2']:.6f}, "
+                    f"pred {e['loss_pred']:.4f}, add {e['loss_add']:.4f}, pure "
+                    f"{e['pure_ratio_1']:.3f}/{e['pure_ratio_2']:.3f}, val "
+                    f"{e['val_acc_1']:.4f}/{e['val_acc_2']:.4f}")
+            log(f"  {name}: main(config) wall {r['wall_s']:.1f} s, peak device memory "
+                f"{r['peak_bytes'] / 2**30:.2f} GiB, SpMM launches by F {r['launches']}")
+            if r["launches"] != want_counts[name]:
+                raise RuntimeError(f"H run '{name}' launched the SpMM {r['launches']} times "
+                                   f"by F, expected {want_counts[name]}")
+    finally:
+        steps.topk_rewire_tree, steps.h_epoch = rewire.topk_rewire_tree, h_epoch
+    full, resumed = runs["full"]["epochs"], runs["resumed"]["epochs"]
+    if [e["epoch"] for e in full] != [0, 1] or [e["epoch"] for e in resumed] != [1]:
+        raise RuntimeError("expected H epochs [0, 1] uninterrupted and [1] resumed")
+    losses = [e[k] for e in full + resumed for k in ("loss_1", "loss_2", "loss_pred", "loss_add")]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite H loss: {losses}")
+    plain, pseudo = full
+    if not (plain["loss_pred"] == plain["loss_add"] == 0.0
+            and pseudo["loss_pred"] > 0.0 and pseudo["loss_add"] > 0.0):
+        raise RuntimeError("the pseudo net's terms must be 0 in epoch 0 and > 0 in epoch 1")
+    best_val = max(pseudo["val_acc_1"], pseudo["val_acc_2"])
+    if not best_val > 1 / 40:
+        raise RuntimeError(f"H validation accuracy {best_val} not above 1/40")
+    nsteps = runs["full"]["steps"][1]
+    rewire_ms = runs["full"]["rewire_ms"]
+    if len(rewire_ms) != nsteps:
+        raise RuntimeError(f"{len(rewire_ms)} rewires in the pseudo epoch of {nsteps} steps")
+    resume_err = _resume_check(pseudo, resumed[0], ("loss_1", "loss_2", "loss_pred", "loss_add"))
+    rep = dict(config=H_CONFIG, steps=nsteps, epochs=full, resumed_epoch=resumed[0],
+               resume_rel_diff=resume_err, best_val=best_val,
+               plain_step_ms=plain["epoch_train_s"] / nsteps * 1e3,
+               pseudo_step_ms=pseudo["epoch_train_s"] / nsteps * 1e3,
+               rewire_ms_mean=float(np.mean(rewire_ms)),
+               rewire_share=sum(rewire_ms) / (pseudo["epoch_train_s"] * 1e3),
+               runs={k: dict(wall_s=r["wall_s"], peak_bytes=r["peak_bytes"],
+                             launches=r["launches"]) for k, r in runs.items()},
+               launches=runs["full"]["launches"], peak_bytes=runs["full"]["peak_bytes"])
+    log(f"  {nsteps} steps an epoch: plain {rep['plain_step_ms']:.1f} ms a step, pseudo "
+        f"{rep['pseudo_step_ms']:.1f} ms a step; {len(rewire_ms)} rewires of the raw features "
+        f"of {rep['rewire_ms_mean']:.2f} ms each (CUDA events): {100 * rep['rewire_share']:.1f}% "
+        f"of the pseudo epoch's train time")
+    log(f"  resumed epoch 1 against the uninterrupted run: summed losses rel diff "
+        f"{resume_err:.3e} (required 0: bit-equal)")
+    if resume_err != 0.0:
+        raise RuntimeError(f"resumed H epoch 1 is {resume_err:.3e} from the uninterrupted run")
+    return rep
+
+
+def run_ct_path(out: Path) -> dict:
+    """PipelineCT at full width through ``main`` (phase 8 of the module
+    doc): warmup 2, split, finetune 2, then killed after the first finetune
+    epoch and resumed."""
+    base = load_config(CT_CONFIG)
+    base.update(num_runs=1, warmup=2, ct_tk=1, max_epochs=4, reinit_retries=0)
+    shutil.rmtree(out / "ct", ignore_errors=True)
+    ckpt = str(out / "ct" / "ckpt")
+    plan = (("full", {}), ("killed", dict(max_epochs=3, ckpt_every=1, ckpt_path=ckpt)),
+            ("resumed", dict(resume=True, ckpt_every=1, ckpt_path=ckpt)))
+    # F = 128: the leaf table, then the single eval (layer 2) at the
+    # finetune's start, each finetune epoch and the end; F = 256: the pair
+    # eval of each warmup epoch and the split
+    want_counts = {"full": {128: 5, 256: 3}, "killed": {128: 4, 256: 3},
+                   "resumed": {128: 3}}
+    runs, seen = {}, []
+    ct_epoch = steps.ct_epoch
+    steps.ct_epoch = _counting_steps(ct_epoch, seen)  # the warmup's epochs
+    try:
+        for name, over in plan:
+            seen.clear()
+            cfg = dict(copy.deepcopy(base), out_dir=str(out / "ct" / name), **over)
+            runs[name] = _drive(cfg)  # main: algo_type contrastive -> PipelineCT
+            runs[name]["warmup_steps"] = list(seen)
+    finally:
+        steps.ct_epoch = ct_epoch
+    for name, r in runs.items():
+        for ev in ("warmup", "finetune", "split", "views"):
+            r[ev] = _events(r, ev)
+        for e in r["warmup"]:
+            log(f"  {name} warmup epoch {e['epoch']}: train {e['epoch_train_s']:.3f} s, loss "
+                f"{e['loss_1']:.4f}/{e['loss_2']:.4f}, val {e['val_acc_1']:.4f}/"
+                f"{e['val_acc_2']:.4f}")
+        for e in r["split"]:
+            log(f"  {name} split: {e['n_clean']} clean ids (clean ratio {e['clean_ratio']:.4f}, "
+                f"the train split's {e['train_clean_frac']:.4f}), {e['n_noisy']} noisy")
+        for e in r["finetune"]:
+            log(f"  {name} finetune epoch {e['epoch']}: train {e['epoch_train_s']:.3f} s over "
+                f"{e['steps']} steps, loss semi {e['loss_semi']:.6f} cont {e['loss_cont']:.6f}, "
+                f"val {e['val_acc']:.4f}, test {e['test_acc']:.4f}")
+        log(f"  {name}: main(config) wall {r['wall_s']:.1f} s (views {r['views'][0]['build_s']:.1f} "
+            f"s, edge augmentation on the host {r['views'][0]['edges_s']:.1f} s), peak device "
+            f"memory {r['peak_bytes'] / 2**30:.2f} GiB, SpMM launches by F {r['launches']}")
+        if r["launches"] != want_counts[name]:
+            raise RuntimeError(f"CT run '{name}' launched the SpMM {r['launches']} times by "
+                               f"F, expected {want_counts[name]}")
+    full, resumed = runs["full"], runs["resumed"]
+    if ([e["epoch"] for e in full["warmup"]] != [0, 1]
+            or [e["epoch"] for e in full["finetune"]] != [2, 3]
+            or [e["epoch"] for e in resumed["finetune"]] != [3] or resumed["warmup"]):
+        raise RuntimeError("expected warmup [0, 1] and finetune [2, 3] uninterrupted, "
+                           "finetune [3] alone resumed")
+    losses = ([e[k] for e in full["warmup"] for k in ("loss_1", "loss_2")]
+              + [e[k] for e in full["finetune"] + resumed["finetune"]
+                 for k in ("loss_semi", "loss_cont")])
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite CT loss: {losses}")
+    (split,) = full["split"]
+    if not split["clean_ratio"] > split["train_clean_frac"]:
+        raise RuntimeError(f"the split's clean ids are no cleaner than the train split: {split}")
+    best_test = float(full["result"]["contrastive"][0])
+    if not best_test > 1 / 40:
+        raise RuntimeError(f"CT finetune best test accuracy {best_test} not above 1/40")
+    resume_err = _resume_check(full["finetune"][1], resumed["finetune"][0],
+                               ("loss_semi", "loss_cont"))
+    warm, ft = full["warmup"][-1], full["finetune"][-1]
+    warm_steps = full["warmup_steps"][-1]
+    rep = dict(config=CT_CONFIG, warmup_epochs=full["warmup"], finetune_epochs=full["finetune"],
+               split=split, resumed_epoch=resumed["finetune"][0], resume_rel_diff=resume_err,
+               best_test=best_test, warmup_step_ms=warm["epoch_train_s"] / warm_steps * 1e3,
+               finetune_step_ms=ft["epoch_train_s"] / ft["steps"] * 1e3,
+               views_build_s=full["views"][0]["build_s"],
+               views_edges_s=full["views"][0]["edges_s"],
+               runs={k: dict(wall_s=r["wall_s"], peak_bytes=r["peak_bytes"],
+                             launches=r["launches"]) for k, r in runs.items()},
+               launches=full["launches"], peak_bytes=full["peak_bytes"])
+    log(f"  warmup {rep['warmup_step_ms']:.1f} ms a step ({warm_steps} steps), finetune "
+        f"{rep['finetune_step_ms']:.1f} ms a step ({ft['steps']} steps); best test "
+        f"{best_test:.4f}")
+    log(f"  resumed finetune epoch 3 against the uninterrupted run: summed losses rel diff "
+        f"{resume_err:.3e} (required 0: bit-equal)")
+    if resume_err != 0.0:
+        raise RuntimeError(f"resumed CT finetune epoch is {resume_err:.3e} from the "
+                           "uninterrupted run")
+    return rep
+
+
 def run_gather_path(dev) -> dict:
     """The probe tool's path with the gather-ring counts reset before and
     read after, then the kernel's rings held bit-equal to the plain
@@ -1032,6 +1400,7 @@ def run(out: Path) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     out.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -1056,6 +1425,8 @@ def run(out: Path) -> int:
     small_ctp = check_small_ctp(dev)
     small_rewire = check_small_rewire(dev)
     small_te = check_small_te(dev)
+    small_h = check_small_h(dev)
+    small_ct = check_small_ct(dev)
 
     log("[3] main path: products, full width")
     main_rep = run_main_path(out)
@@ -1073,14 +1444,18 @@ def run(out: Path) -> int:
     log("[7] TE path: arxiv, full width, with the rewired contrast")
     te_rep = run_te_path(out, dev)
 
+    log("[8] H and CT paths: arxiv, full width, each killed and resumed")
+    h_rep = run_h_path(out)
+    ct_rep = run_ct_path(out)
+
     kernels = [spmm_row(row, main_rep["launches"].get(row["F"], 0)) for row in rows]
-    arxiv_launches = {}  # the CTP runs' and the TE run's
-    for r in list(ctp_rep["runs"].values()) + [te_rep]:
-        for f, c in r["launches"].items():
-            arxiv_launches[f] = arxiv_launches.get(f, 0) + c
+    arxiv_runs = {"ctp": list(ctp_rep["runs"].values()), "te": [te_rep],
+                  "h": list(h_rep["runs"].values()), "ct": list(ct_rep["runs"].values())}
     for row in ctp_rows:
-        k = spmm_row(row, arxiv_launches.get(row["F"], 0))
-        k["launches_te"] = te_rep["launches"].get(row["F"], 0)
+        by_path = {p: sum(r["launches"].get(row["F"], 0) for r in rs)
+                   for p, rs in arxiv_runs.items()}
+        k = spmm_row(row, sum(by_path.values()))
+        k.update({f"launches_{p}": c for p, c in by_path.items()})
         kernels.append(k)
     block_sel = gather_rep["yardsticks"]["index_select blocks"]
     row_sel = gather_rep["yardsticks"]["index_select rows"]
@@ -1096,8 +1471,11 @@ def run(out: Path) -> int:
     report = dict(nvidia_smi=smi, device=kind, count=count, build_s=build_s,
                   checks=cases, gather_checks=gather_cases, small_path=small,
                   small_ctp=small_ctp, small_rewire=small_rewire, small_te=small_te,
-                  main_path=main_rep, ctp_path=ctp_rep, gather_path=gather_rep, timing=rows,
-                  ctp_timing=ctp_rows, te_path=te_rep, kernels=kernels)
+                  small_h=small_h, small_ct=small_ct, main_path=main_rep, ctp_path=ctp_rep,
+                  gather_path=gather_rep, timing=rows, ctp_timing=ctp_rows, te_path=te_rep,
+                  h_path=h_rep, ct_path=ct_rep, kernels=kernels,
+                  script_s=time.perf_counter() - t_start)
+    log(f"    whole script {report['script_s']:.1f} s")
     (out / "report.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -99,7 +99,7 @@ def _tree_edge_scores(hn: torch.Tensor, topo: TreeTopo) -> torch.Tensor:
 
 
 def topk_rewire_tree(h: torch.Tensor, topo: TreeTopo, k_percent: float = 0.1,
-                     block: int = 2048) -> tuple[TreeTopo, TreeTopo]:
+                     block: int = 2048, neg: bool = True) -> tuple[TreeTopo, TreeTopo | None]:
     """Tree-subgraph ``topk_rewire`` in delta form: (pos_topo, neg_topo).
 
     The same picks as :func:`topk_rewire` on ``topo``'s equivalent edge
@@ -108,7 +108,10 @@ def topk_rewire_tree(h: torch.Tensor, topo: TreeTopo, k_percent: float = 0.1,
     excluded entries of a block are few and known from the tree's
     structure (the diagonal, and each child's one out-edge to its parent),
     so they are set to -inf in place rather than through [block, N] masks;
-    rows past N are -inf whole."""
+    rows past N are -inf whole. With ``neg=False`` the negative graph is
+    neither built nor returned (None): a caller that reads only the
+    positive one skips its half of the work, as XLA drops it from the JAX
+    package's jitted steps."""
     n, b_seed = topo.num_nodes, topo.batch_size
     e = n - b_seed  # structural edge count
     k2 = max(2 * int(n * k_percent), 1)
@@ -118,7 +121,6 @@ def topk_rewire_tree(h: torch.Tensor, topo: TreeTopo, k_percent: float = 0.1,
     sim_e = _tree_edge_scores(hn, topo)
     valid = topo.edge_mask
     pos_keep = valid & ~_remove_k(sim_e, valid, k2, lowest=True)
-    neg_keep = valid & ~_remove_k(sim_e, valid, k2, lowest=False)
 
     block = min(block, n)
     nblocks = -(-n // block)
@@ -142,17 +144,21 @@ def topk_rewire_tree(h: torch.Tensor, topo: TreeTopo, k_percent: float = 0.1,
         return merge_topk(*acc, v, row0 + torch.div(idx, n, rounding_mode="floor"),
                           idx % n, k2)
 
-    pos, neg = carry(), carry()
+    pos, negs = carry(), carry()
     for i in range(nblocks):
         row0 = i * block
         rid = (row0 + local).clamp(max=n - 1)
         where = (row0, rid, topo.parent_of(rid), (rid - b_seed).clamp(0, max(e - 1, 0)),
                  rid >= b_seed)  # rows past n are -inf whole
         sim = hp[row0:row0 + block] @ hn.T
-        neg = sweep(-sim, valid, neg, *where)  # first: the next sweep writes into sim
+        if neg:
+            negs = sweep(-sim, valid, negs, *where)  # first: the next sweep writes into sim
         pos = sweep(sim, pos_keep, pos, *where)
         del sim
 
     ones = torch.ones(k2, dtype=torch.bool, device=dev)
-    return (TreeTopo(b_seed, topo.fanouts, pos_keep, pos[1], pos[2], ones),
-            TreeTopo(b_seed, topo.fanouts, neg_keep, neg[1], neg[2], ones))
+    pos_topo = TreeTopo(b_seed, topo.fanouts, pos_keep, pos[1], pos[2], ones)
+    if not neg:
+        return pos_topo, None
+    neg_keep = valid & ~_remove_k(sim_e, valid, k2, lowest=False)
+    return pos_topo, TreeTopo(b_seed, topo.fanouts, neg_keep, negs[1], negs[2], ones)

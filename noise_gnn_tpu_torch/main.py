@@ -5,17 +5,18 @@ this port runs: ``coteaching`` and ``codi`` train ``PipelineCO`` on the OGB
 datasets and ``PipelineS`` on the small graphs, or, with ``what: _test2`` or
 ``_test3``, ``PipelineTE`` (OGB) and ``PipelineTES``; ``baseline`` forces
 ``train_type: baseline`` on ``PipelineCO``/``PipelineS``; ``ctp`` trains
-``PipelineCTP``, ``grid`` ``PipelineSG`` and ``analysis`` ``PipelineA``.
-``contrastive`` and ``hpseudo`` raise "not yet ported". Runs on the CUDA
-card unless the config says ``device: 'cpu'``.
+``PipelineCTP``, ``contrastive`` ``PipelineCT``, ``hpseudo`` ``PipelineH``,
+``grid`` ``PipelineSG`` and ``analysis`` ``PipelineA``: every one of the 36
+configs under ``configs/`` dispatches. Runs on the CUDA card unless the
+config says ``device: 'cpu'``.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from .train.pipelines import (PipelineA, PipelineCO, PipelineCTP, PipelineS, PipelineSG,
-                              PipelineTE, PipelineTES, not_yet_ported)
+from .train.pipelines import (PipelineA, PipelineCO, PipelineCT, PipelineCTP, PipelineH,
+                              PipelineS, PipelineSG, PipelineTE, PipelineTES)
 from .utils.config import load_config
 
 OGB = ("ogbn-arxiv", "ogbn-products")
@@ -34,12 +35,16 @@ def main(config: dict):
         cls = PipelineCO if ogb else PipelineS
     elif algo == "ctp":
         cls = PipelineCTP
+    elif algo == "contrastive":
+        cls = PipelineCT
     elif algo == "grid":
         cls = PipelineSG
     elif algo == "analysis":
         cls = PipelineA
+    elif algo == "hpseudo":
+        cls = PipelineH
     else:
-        raise not_yet_ported(f"algo_type {algo!r}")
+        raise ValueError(f"wrong algo type {algo!r}")
     return cls(config).loop()
 
 

@@ -3,10 +3,13 @@
 The JAX params pytree, as numpy (``jax.tree.map(np.asarray, params)``), is
 ``{"convs": [{"w_neigh", "w_root", "b"} | {"w", "b"}, ...]}`` with weight
 matrices ``[in, out]`` (noise_gnn_tpu/models/layers.py:66-72), plus
-``"noise"`` [nbr_nodes, in_size] for sagePL. The port keeps
-the same structure and the same ``[in, out]`` layout at its public
-functions (``x @ w``), so the mapping is a copy into f32 tensors; nothing is
-transposed.
+``"noise"`` [nbr_nodes, in_size] for sagePL, ``"proj"`` {"w", "b"} and
+``"bnl"`` {"scale", "bias"} for sageFC, and ``"act"`` {"alpha"} (a 0-d
+array) for sageH and sageFC. The port keeps the same structure and the same
+``[in, out]`` layout at its public functions (``x @ w``), so the mapping is
+a copy into f32 tensors; nothing is transposed. A key outside that
+structure (``use_bn``'s ``bn1``/``bn2``, GAT's params) raises rather than
+being dropped.
 """
 
 from __future__ import annotations
@@ -14,24 +17,41 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# top-level entries besides "convs" -> the keys each holds (None: one array)
+_ENTRIES = {"noise": None, "proj": {"w", "b"}, "bnl": {"scale", "bias"}, "act": {"alpha"}}
+_CONV_KEYS = ({"w_neigh", "w_root", "b"}, {"w", "b"})
+
+
+def _check(params: dict) -> None:
+    unknown = set(params) - {"convs"} - set(_ENTRIES)
+    if unknown:
+        raise ValueError(f"params entries {sorted(unknown)} are not carried by the port")
+    for i, conv in enumerate(params["convs"]):
+        if set(conv) not in _CONV_KEYS:
+            raise ValueError(f"conv {i} has keys {sorted(conv)}, not one of "
+                             f"{[sorted(k) for k in _CONV_KEYS]}")
+    for name, keys in _ENTRIES.items():
+        if keys is not None and name in params and set(params[name]) != keys:
+            raise ValueError(f"params[{name!r}] has keys {sorted(params[name])}, "
+                             f"expected {sorted(keys)}")
+
+
+def _map(params: dict, leaf) -> dict:
+    _check(params)
+    out = {"convs": [{k: leaf(v) for k, v in conv.items()} for conv in params["convs"]]}
+    for name, keys in _ENTRIES.items():
+        if name in params:
+            v = params[name]
+            out[name] = leaf(v) if keys is None else {k: leaf(v[k]) for k in v}
+    return out
+
 
 def params_from_jax(params_np: dict, device=None) -> dict:
     """JAX-layout numpy params -> the port's params (f32 leaf tensors)."""
-    def t(v):
-        return torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
-
-    out = {"convs": [{k: t(v) for k, v in conv.items()} for conv in params_np["convs"]]}
-    if "noise" in params_np:
-        out["noise"] = t(params_np["noise"])
-    return out
+    return _map(params_np, lambda v: torch.tensor(np.asarray(v), dtype=torch.float32,
+                                                  device=device))
 
 
 def params_to_jax(params: dict) -> dict:
     """The inverse: the port's params -> JAX-layout numpy arrays."""
-    def a(v):
-        return v.detach().cpu().numpy()
-
-    out = {"convs": [{k: a(v) for k, v in conv.items()} for conv in params["convs"]]}
-    if "noise" in params:
-        out["noise"] = a(params["noise"])
-    return out
+    return _map(params, lambda v: v.detach().cpu().numpy())

@@ -1,6 +1,7 @@
 """Functional GNN layers (params as plain dicts of tensors).
 
-Port of ``noise_gnn_tpu/models/layers.py`` for SAGEConv and GCNConv. Weight
+Port of ``noise_gnn_tpu/models/layers.py`` for SAGEConv, GCNConv, linear,
+batch norm and PReLU. Weight
 matrices keep the JAX package's ``[in, out]`` layout, so ``x @ w``; biases
 are ``[out]``. Parameters stay f32 and are cast to the activation dtype at
 use, so a bf16 ``compute_dtype`` runs bf16 matmuls with f32 master weights.
@@ -31,6 +32,11 @@ def glorot(gen: torch.Generator, shape: tuple[int, ...], device=None) -> torch.T
     limit = math.sqrt(6.0 / (shape[0] + shape[-1]))
     u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
     return u * (2 * limit) - limit
+
+
+def linear_init(gen: torch.Generator, in_size: int, out_size: int, device=None) -> dict:
+    return {"w": glorot(gen, (in_size, out_size), device),
+            "b": torch.zeros(out_size, dtype=torch.float32, device=device)}
 
 
 def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -140,3 +146,32 @@ def dropout(gen: torch.Generator | None, x: torch.Tensor, rate: float,
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+# -------------------------------------------------------------- batch norm
+
+
+def batch_norm_init(size: int, device=None) -> dict:
+    return {"scale": torch.ones(size, dtype=torch.float32, device=device),
+            "bias": torch.zeros(size, dtype=torch.float32, device=device)}
+
+
+def batch_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Normalization by the batch's statistics in training and at eval alike
+    (the reference's nn.BatchNorm1d is only exercised in training), with
+    the population variance, as ``jnp.var``."""
+    mean = x.mean(dim=0, keepdim=True)
+    var = x.var(dim=0, unbiased=False, keepdim=True)
+    xn = (x - mean) * torch.rsqrt(var + eps)
+    return xn * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
+
+
+# ------------------------------------------------------------------ PReLU
+
+
+def prelu_init(device=None) -> dict:
+    return {"alpha": torch.tensor(0.25, dtype=torch.float32, device=device)}
+
+
+def prelu(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x >= 0, x, params["alpha"].to(x.dtype) * x)

@@ -1,21 +1,28 @@
-"""SAGE, GCN and sagePL stacks: edge-list forward (``apply``) and dense
-k-hop tree forward (``apply_tree``), with params as plain dicts of f32
-tensors.
+"""SAGE, GCN, sagePL, sageH, sageFC and gcn_head stacks: edge-list forward
+(``apply``) and dense k-hop tree forward (``apply_tree``), with params as
+plain dicts of f32 tensors.
 
-Port of ``noise_gnn_tpu/models/nets.py`` for the modules the port runs so
-far, ``sage``, ``gcn`` and ``sagePL``; a NetSpec of another module (sageH,
-sageFC, gcn_head, gat) or with ``use_bn`` raises until it is ported. Params
+Port of ``noise_gnn_tpu/models/nets.py`` for the modules the port runs:
+``sage``, ``gcn``, ``sagePL``, ``sageH``, ``sageFC`` and ``gcn_head``; a
+NetSpec of ``gat`` or with ``use_bn`` raises until it is ported. Params
 have the JAX pytree's structure,
 ``{"convs": [{"w_neigh", "w_root", "b"} | {"w", "b"}, ...]}`` with weights
-``[in, out]``, plus ``"noise"`` [nbr_nodes, in_size] for sagePL
-(``models/convert.py`` maps one to the other). With a bf16 ``compute_dtype``
-activations run in bf16 and the outputs come back f32.
+``[in, out]``, plus ``"noise"`` [nbr_nodes, in_size] for sagePL,
+``"proj"`` {"w", "b"} and ``"bnl"`` {"scale", "bias"} for sageFC and
+``"act"`` {"alpha"} for sageH and sageFC (``models/convert.py`` maps one to
+the other). With a bf16 ``compute_dtype`` activations run in bf16 and the
+outputs come back f32.
 
 sagePL (reference sagePL.py) is a SAGE stack with a learned per-node input
 noise: ``apply`` runs a pure pass and a pass on ``x + 0.1 * normalize(noise
 [n_id])`` and returns both branches' (hidden, log-softmax, logits). Its
 tree forward is not ported: the CTP and TE steps run ``apply`` on the flat
-subgraph.
+subgraph. sageH (reference sageH.py) also returns ``h``, the post-ReLU
+hidden of the last non-final layer before its dropout; sageFC (sageFC.py)
+returns ``h = batch_norm(bnl, proj(h))`` instead. Both carry a PReLU
+(``act``) that their forward never uses, as the reference's do. gcn_head
+(gcn.py) is a dropout of the input and the first conv alone, though its
+params hold ``num_layers`` convs, as the JAX package builds them.
 """
 
 from __future__ import annotations
@@ -26,18 +33,23 @@ import torch
 
 from ..ops.scatter import fast_take
 from .layers import (
+    batch_norm,
+    batch_norm_init,
     dropout,
     gcn_conv,
     gcn_conv_init,
     gcn_conv_pre,
     gcn_conv_tree,
+    linear,
+    linear_init,
+    prelu_init,
     sage_conv,
     sage_conv_init,
     sage_conv_pre,
     sage_conv_tree,
 )
 
-MODULES = ("sage", "gcn", "sagePL")
+MODULES = ("sage", "gcn", "sagePL", "sageH", "sageFC", "gcn_head")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -54,6 +66,7 @@ class NetSpec:
     dropout: float = 0.5
     use_bn: bool = False
     nbr_nodes: int = 1  # rows of sagePL's per-node noise parameter
+    proj_size: int = 128  # sageFC's projection head width
     aggr: str = "mean"  # SAGE neighbor aggregation: 'mean' | 'max'
     compute_dtype: str = "float32"
 
@@ -102,13 +115,25 @@ def init_params(gen: torch.Generator, spec: NetSpec, device=None) -> dict:
         # learned per-node input noise (reference sagePL.py:22)
         params["noise"] = torch.randn((spec.nbr_nodes, spec.in_size), generator=gen,
                                       device=device, dtype=torch.float32)
+    if spec.module == "sageFC":
+        params["proj"] = linear_init(gen, spec.hidden_size, spec.proj_size, device)
+        params["bnl"] = batch_norm_init(spec.proj_size, device)
+    if spec.module in ("sageH", "sageFC"):
+        params["act"] = prelu_init(device)  # in the reference, unused by its forward
     return params
 
 
 def parameters(params: dict) -> list[torch.Tensor]:
-    """The leaf tensors of a params dict, in a fixed order (for optimizers)."""
+    """The leaf tensors of a params dict, in a fixed order (for optimizers):
+    each conv's by sorted key, then ``noise``, ``proj``, ``bnl`` and ``act``
+    where present."""
     leaves = [p[k] for p in params["convs"] for k in sorted(p)]
-    return leaves + ([params["noise"]] if "noise" in params else [])
+    if "noise" in params:
+        leaves.append(params["noise"])
+    for name in ("proj", "bnl", "act"):
+        if name in params:
+            leaves += [params[name][k] for k in sorted(params[name])]
+    return leaves
 
 
 def _conv(spec, p, x, edge_index, num_nodes, edge_mask):
@@ -147,12 +172,23 @@ def _stack_forward(spec, params, x, edge_index, n, edge_mask, train, gen):
     return x, h
 
 
+def _heads(spec: NetSpec, params: dict, z: torch.Tensor, h: torch.Tensor) -> dict:
+    """The outputs of a plain stack from its logits ``z`` and hidden ``h``."""
+    if spec.module == "sageH":
+        return {"logits": z.float(), "h": h.float()}
+    if spec.module == "sageFC":
+        return {"logits": z.float(),
+                "h": batch_norm(params["bnl"], linear(params["proj"], h.float()))}
+    return {"logits": z.float()}
+
+
 def apply(spec: NetSpec, params: dict, x: torch.Tensor, edge_index, *,
           num_nodes: int | None = None, edge_mask=None, train: bool = False,
           gen: torch.Generator | None = None, n_id: torch.Tensor | None = None,
           noise_rate: float = 0.1, branch: str | None = None) -> dict:
     """Edge-list forward (``edge_index`` [2, E] or a TreeTopo). Returns
-    {"logits"} for sage/gcn and, for sagePL, {"h_pure", "y_pure", "z_pure",
+    {"logits"} for sage/gcn/gcn_head, {"logits", "h"} for sageH/sageFC and,
+    for sagePL, {"h_pure", "y_pure", "z_pure",
     "h_noisy", "y_noisy", "z_noisy"}, all f32; ``n_id`` maps the rows of x
     to the graph's nodes, whose noise rows the noisy pass adds. ``branch``
     ("pure" or "noisy") runs only that sagePL pass and returns its three
@@ -160,9 +196,13 @@ def apply(spec: NetSpec, params: dict, x: torch.Tensor, edge_index, *,
     outputs they do not read."""
     n = num_nodes if num_nodes is not None else x.shape[0]
     x = x.to(spec.dtype)
+    if spec.module == "gcn_head":
+        # dropout of the input, then the first conv alone (reference gcn.py:19-23)
+        x = dropout(gen, x, spec.dropout, train)
+        return {"logits": sage_conv(params["convs"][0], x, edge_index, n, edge_mask).float()}
     if spec.module != "sagePL":
-        return {"logits": _stack_forward(spec, params, x, edge_index, n, edge_mask, train,
-                                         gen)[0].float()}
+        z, h = _stack_forward(spec, params, x, edge_index, n, edge_mask, train, gen)
+        return _heads(spec, params, z, h)
     out = {}
     if branch != "noisy":
         z, h = _stack_forward(spec, params, x, edge_index, n, edge_mask, train, gen)
@@ -189,17 +229,27 @@ def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
     0..L-1-i to depths 0..L-1-i. With ``leaf_agg`` [N_{L-1}, F] (exact-leaf
     mode) the tree is one hop shallower and the first layer's deepest conv
     uses the precomputed neighbor aggregate. Dropout draws one mask per
-    depth array from ``gen``. Returns {"logits": f32 [B, C]}."""
+    depth array from ``gen``. Returns what :func:`apply` returns, with the
+    seeds as rows."""
     if spec.module == "sagePL":
         raise NotImplementedError("apply_tree for sagePL is not yet ported to "
                                   "noise_gnn_tpu_torch (the CTP and TE steps run apply "
                                   "on the flat subgraph)")
-    L = spec.num_layers
     exact = leaf_agg is not None
+    if exact and spec.module == "gcn_head":
+        raise ValueError("exact-leaf mode unsupported for module 'gcn_head'")
+    xs = [x.to(spec.dtype) for x in xs]
+    if spec.module == "gcn_head":
+        xs = [dropout(gen, x, spec.dropout, train) for x in xs]
+        n0, f = xs[0].shape[0], fanouts[0]
+        return {"logits": sage_conv_tree(params["convs"][0], xs[0],
+                                         xs[1].reshape(n0, f, xs[1].shape[-1]),
+                                         masks[1].reshape(n0, f)).float()}
+    L = spec.num_layers
     want = L if exact else L + 1
     if len(xs) != want:
         raise ValueError(f"need {want} depth arrays, got {len(xs)}")
-    xs = [x.to(spec.dtype) for x in xs]
+    h = xs[0]
     for i, p in enumerate(params["convs"]):
         new_xs = []
         for d in range(L - i):
@@ -214,5 +264,6 @@ def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
         xs = new_xs
         if i != L - 1:
             xs = [torch.relu(x) for x in xs]
+            h = xs[0]
             xs = [dropout(gen, x, spec.dropout, train) for x in xs]
-    return {"logits": xs[0].float()}
+    return _heads(spec, params, xs[0], h)

@@ -1,13 +1,16 @@
 """Training pipelines: ``PipelineCO``, ``PipelineS``, ``PipelineTE``,
-``PipelineTES``, ``PipelineCTP``, ``PipelineSG`` and ``PipelineA``.
+``PipelineTES``, ``PipelineCTP``, ``PipelineH``, ``PipelineCT``,
+``PipelineSG`` and ``PipelineA``.
 
 Port of ``noise_gnn_tpu/train/pipelines.py`` for one device: the host data
 (graph, splits, ``flip_label`` noise keyed by (seed, run)), the exact-leaf
 table, the co-teaching loop with paired full-graph eval, the co-teaching +
 consistency (CTP) loop, the co-teaching + rewired-contrast (TE) loop, the
-beta x tau grid of TE runs, the selection-analysis loop, the baseline loop,
-checkpoint/resume, ``do_train: false`` (load and evaluate), ``do_plot``,
-the reinit-retry shell and the run summaries. The JAX package's mesh, TP,
+pseudo-label co-teaching (H) loop, the contrastive warmup -> split ->
+finetune (CT) pipeline, the beta x tau grid of TE runs, the
+selection-analysis loop, the baseline loop, checkpoint/resume,
+``do_train: false`` (load and evaluate), ``do_plot``, the reinit-retry
+shell and the run summaries. The JAX package's mesh, TP,
 halo and full-batch branches are not part of it: ``full_graph: true`` logs
 and falls back to sampled-tree training (as the JAX package does on one
 device) and ``model_parallel > 1`` raises.
@@ -29,8 +32,11 @@ import time
 import numpy as np
 import torch
 
+from ..augment.edges import augment_edges_pos
+from ..augment.features import shuffle_neg, shuffle_pos
 from ..eval.inference import FullGraphInference, split_accuracy_fn
 from ..eval.metrics import confusion_matrix
+from ..graph.containers import CSRGraph
 from ..graph.datasets import load_network
 from ..losses.coteaching import ct_loss
 from ..losses.schedules import forget_rate_schedule
@@ -43,10 +49,6 @@ from ..utils.logging import MetricsWriter, initialize_logger
 from ..utils.plotting import plot_metrics_file
 from ..utils.profiling import tree_edges_per_batch
 from . import steps as S
-
-
-def not_yet_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to noise_gnn_tpu_torch")
 
 
 def selection_degenerate(run_pure, clean_frac: float, tol: float = 0.005) -> bool:
@@ -79,6 +81,10 @@ class RunSummary(tuple):
         self = super().__new__(cls, (mean, std))
         self.extra = extra or {}
         return self
+
+
+# modules whose eval is the full-graph SpMM inference (JAX pipelines.py:442)
+STACK_MODULES = ("sage", "gcn", "sageH", "sageFC", "sagePL")
 
 
 def make_optimizer(config: dict):
@@ -188,30 +194,34 @@ class BasePipeline:
         """A state tree of the spec's shapes, from a throwaway generator (the
         run's own generator is not consumed)."""
         gen = torch.Generator(device=self.device).manual_seed(0)
-        return S.state_tree(S.init_state(gen, spec, self.make_optimizer, self.device))
+        return S.fresh_state_tree(nets.init_params(gen, spec, self.device))
 
     def _save_ckpt(self, path: str, states, run: int, epoch: int, attempt: int,
                    **meta) -> None:
         save_checkpoint(path, tuple(S.state_tree(s) for s in states),
                         {**self._ckpt_meta(run, epoch, attempt), **meta})
 
-    def _try_resume(self, ckpt_path: str, spec, n_states: int = 2):
-        """Load the states and positions if ``resume`` is set and the bundle
-        exists, restoring the host rng and the device generator. Returns
-        (states_or_None, start_run, start_epoch, meta)."""
+    def _try_resume(self, ckpt_path: str, specs, make_optimizer=None, extra=None):
+        """Load the states (one of each spec in ``specs``) and positions if
+        ``resume`` is set and the bundle exists, restoring the host rng and
+        the device generator. ``extra``, a template nest, is a last member
+        of the bundle, returned as loaded. Returns (states_or_None,
+        start_run, start_epoch, meta), with the states followed by the extra
+        member where one is given."""
         if not (self.config.get("resume") and os.path.exists(ckpt_path + ".npz")):
             return None, 0, 0, {}
-        tmpl = self._state_template(spec)
-        trees, meta = load_checkpoint(ckpt_path, (tmpl,) * n_states)
+        tmpl = tuple(self._state_template(spec) for spec in specs)
+        bundle, meta = load_checkpoint(ckpt_path, tmpl if extra is None else (*tmpl, extra))
         if meta.get("rng_state"):
             self.rng.bit_generator.state = meta["rng_state"]
         if meta.get("gen_state"):
             self.gen.set_state(torch.tensor(list(bytes.fromhex(meta["gen_state"])),
                                             dtype=torch.uint8))
-        states = tuple(S.state_from_tree(t, self.make_optimizer) for t in trees)
+        opt = make_optimizer or self.make_optimizer
+        states = tuple(S.state_from_tree(t, opt) for t in bundle[:len(specs)])
         run, epoch = int(meta["run"]), int(meta["epoch"]) + 1
         self.logger.info(f"   Resumed from {ckpt_path} at run {run} epoch {epoch}")
-        return states, run, epoch, meta
+        return states + tuple(bundle[len(specs):]), run, epoch, meta
 
     # -------------------------------------------------------------- helpers
 
@@ -283,12 +293,29 @@ class BasePipeline:
         x_agg = self._fused_table(self._agg_kind(spec))[:, f:]
         return FullGraphInference(spec, self.data.csr, x_agg=x_agg)
 
+    def _logits_fns(self, spec):
+        """(logits, logits_pair) of params on the whole graph: the SpMM
+        inference for the conv-stack modules, and for the others
+        (gcn_head) the edge-list forward, as the JAX package evaluates
+        them."""
+        if spec.module in STACK_MODULES:
+            infer = self._make_infer(spec)
+            return (lambda p: infer(p, self.data.x),
+                    lambda p1, p2: infer.pair(p1, p2, self.data.x))
+        eval_fn = S.make_eval_fn(spec)
+        edge_index = torch.from_numpy(self.graph.edge_index).to(self.device).long()
+
+        def logits(p):
+            return eval_fn(p, self.data.x, edge_index)
+
+        return logits, lambda p1, p2: (logits(p1), logits(p2))
+
     def make_eval(self, spec):
         accs = split_accuracy_fn(self.split_idx, self._y, self.graph.num_nodes)
-        infer = self._make_infer(spec)
+        logits, _ = self._logits_fns(spec)
 
         def evaluate(params):
-            return accs(infer(params, self.data.x))
+            return accs(logits(params))
 
         return evaluate
 
@@ -296,10 +323,10 @@ class BasePipeline:
         """Fused dual-model evaluation: one [N, 2H] SpMM per layer serves
         both co-teaching nets."""
         accs = split_accuracy_fn(self.split_idx, self._y, self.graph.num_nodes)
-        infer = self._make_infer(spec)
+        _, logits_pair = self._logits_fns(spec)
 
         def evaluate2(p1, p2):
-            l1, l2 = infer.pair(p1, p2, self.data.x)
+            l1, l2 = logits_pair(p1, p2)
             return accs(l1), accs(l2)
 
         return evaluate2
@@ -402,19 +429,19 @@ class BasePipeline:
                 arr[i, max_e - len(p):] = np.asarray(p, np.float32)
         np.save(os.path.join(pure_dir, f"{self.output_name}.npy"), arr)
 
-    def _loop_pair(self, spec, tag: str, run_epoch) -> RunSummary:
-        """The multi-run loop of two nets trained together (the JAX
-        package's CTP and TE loops): each epoch ``run_epoch(spec, s1, s2,
-        seeds, masks, epoch)`` returns the summed metrics, then both nets
-        are evaluated as a pair; records ``epoch_<tag>``, checkpoints under
-        ``<tag>``, summary ``<tag>``."""
+    def _loop_joint(self, specs, tag: str, run_epoch) -> RunSummary:
+        """The multi-run loop of nets trained under one joint loss (the JAX
+        package's CTP, TE and H loops), one state of each spec in
+        ``specs``: each epoch ``run_epoch(states, seeds, masks, epoch)``
+        returns the summed metrics, then the first two nets are evaluated
+        as a pair; records ``epoch_<tag>``, checkpoints under ``<tag>``,
+        summary ``<tag>``."""
         c = self.config
-        evaluate_pair = self.make_eval_pair(spec)
+        evaluate_pair = self.make_eval_pair(specs[0])
         train_idx = self.split_idx["train"]
         bs = int(c["batch_size"])
         ckpt_every, ckpt_path = self._ckpt_setup(tag)
-        states, start_run, start_epoch, meta = self._try_resume(ckpt_path, spec)
-        s1, s2 = states if states is not None else (None, None)
+        states, start_run, start_epoch, meta = self._try_resume(ckpt_path, specs)
         best_accs, test_hists, reinits = [], [], []
         for run in range(start_run, int(c["num_runs"])):
             if self.reflip_per_run:
@@ -422,15 +449,16 @@ class BasePipeline:
             attempt = int(meta.get("attempt", 0)) if run == start_run else 0
             while True:
                 resumed_partial = start_epoch > 0
-                if s1 is None:
-                    s1, s2 = self.init_state(spec), self.init_state(spec)
+                if states is None:
+                    states = tuple(self.init_state(spec) for spec in specs)
+                s1, s2 = states[:2]
                 best = 0.0
                 run_pure, run_test = [], []
                 for epoch in range(start_epoch, int(c["max_epochs"])):
                     seeds, masks = self.epoch_seed_matrix(train_idx, bs)
                     nb = seeds.shape[0]
                     t_train = time.perf_counter()
-                    agg = run_epoch(spec, s1, s2, seeds, masks, epoch)
+                    agg = run_epoch(states, seeds, masks, epoch)
                     rec = self._fetch_metrics(agg, nb)  # device sync: train done
                     t_train = time.perf_counter() - t_train
                     t_eval = time.perf_counter()
@@ -446,14 +474,14 @@ class BasePipeline:
                         test_acc_1=acc1["test"], test_acc_2=acc2["test"],
                     )
                     if ckpt_every and (epoch + 1) % ckpt_every == 0:
-                        self._save_ckpt(ckpt_path, (s1, s2), run, epoch, attempt)
+                        self._save_ckpt(ckpt_path, states, run, epoch, attempt)
                     if c["epoch_logger"] and not ((epoch + 1) % 5):
                         self.logger.info(
                             f"   Train epoch {epoch + 1}/{c['max_epochs']} --- "
                             f"v1: {acc1['valid']:.3f} v2: {acc2['valid']:.3f} "
                             f"tst1: {acc1['test']:.3f} tst2: {acc2['test']:.3f}")
                 self.logger.info(f"   RUN {run + 1} - best test acc: {best:.3f}")
-                s1, s2, start_epoch = None, None, 0
+                states, start_epoch = None, 0
                 if self._degen_retry(run, attempt, run_pure, best, resumed_partial):
                     attempt += 1
                     continue
@@ -564,7 +592,7 @@ class PipelineCO(BasePipeline):
         edges_per_batch = tree_edges_per_batch(bs, self.fanouts)
         ckpt_every, ckpt_path = self._ckpt_setup("ct")
         best_accs, test_hists, reinits, pure_hist = [], [], [], []
-        states, start_run, start_epoch, meta = self._try_resume(ckpt_path, spec)
+        states, start_run, start_epoch, meta = self._try_resume(ckpt_path, (spec, spec))
         s1, s2 = states if states is not None else (None, None)
         for run in range(start_run, int(c["num_runs"])):
             if self.reflip_per_run:
@@ -670,12 +698,14 @@ class PipelineTE(BasePipeline):
                   spl_noise_rate_pos=float(c["spl_noise_rate_pos"]),
                   spl_noise_rate_neg=float(c["spl_noise_rate_neg"]))
 
-        def run_epoch(spec, s1, s2, seeds, masks, epoch):
-            return S.te_epoch(spec, s1, s2, self.data, seeds, masks, self.gen,
+        spec = self.spec_for()  # sagePL
+
+        def run_epoch(states, seeds, masks, epoch):
+            return S.te_epoch(spec, *states, self.data, seeds, masks, self.gen,
                               float(self.rate_schedule[epoch]), self.fanouts,
                               use_contrast=epoch > int(c["ct_tk"]), **kw)
 
-        return self._loop_pair(self.spec_for(), "te", run_epoch)  # sagePL
+        return self._loop_joint((spec, spec), "te", run_epoch)
 
 
 class PipelineTES(PipelineTE):
@@ -708,12 +738,218 @@ class PipelineCTP(BasePipeline):
     def _loop_ctp(self):
         spl_noise = float(self.config.get("spl_noise", 0.1))
 
-        def run_epoch(spec, s1, s2, seeds, masks, epoch):
-            return S.ctp_epoch(spec, s1, s2, self.data, seeds, masks, self.gen,
+        spec = self.spec_for()  # sagePL
+
+        def run_epoch(states, seeds, masks, epoch):
+            return S.ctp_epoch(spec, *states, self.data, seeds, masks, self.gen,
                                float(self.rate_schedule[epoch]), self.fanouts,
                                use_cr=epoch > 0, beta=1.0, spl_noise=spl_noise)
 
-        return self._loop_pair(self.spec_for(), "ctp", run_epoch)  # sagePL
+        return self._loop_joint((spec, spec), "ctp", run_epoch)
+
+
+class PipelineH(BasePipeline):
+    """Co-teaching + a pseudo-labeler third net on a rewired graph (JAX
+    package pipelines.py:1182-1258; reference PipelineH, src/pipeline_h.py):
+    the config's module (sage or sageH) twice and a ``sage`` pseudo net,
+    under one joint loss; epoch 0 plain co-teaching, every later epoch with
+    the pseudo net."""
+
+    schedule_variant = "ogb"
+
+    def loop(self):
+        c = self.config
+        spec, pseudo_spec = self.spec_for(), self.spec_for("sage")
+        rewire_rate = float(c.get("spl_rewire_rate", 0.2))
+
+        def run_epoch(states, seeds, masks, epoch):
+            return S.h_epoch(spec, pseudo_spec, *states, self.data, seeds, masks, self.gen,
+                             float(self.rate_schedule[epoch]), self.fanouts,
+                             use_pseudo=epoch > 0, rewire_rate=rewire_rate)
+
+        return self._loop_joint((spec, spec, pseudo_spec), "h", run_epoch)
+
+
+class PipelineCT(BasePipeline):
+    """Contrastive pretrain/finetune (JAX package pipelines.py:1261-1461;
+    reference PipelineCT, src/pipeline_contrast.py): a co-teaching warmup
+    saving the best-validation nets, a small-loss split of the train set
+    into clean and noisy ids, then a finetune of net 1 by CE on the clean
+    ids and a multi-view contrastive loss on the noisy ones."""
+
+    schedule_variant = "contrast"
+
+    def loop(self):
+        c = self.config
+        spec = self.spec_for()  # sageFC in config_contrast.yml
+        exact = self.exact_leaf_on(spec)
+        evaluate = self.make_eval(spec)
+        evaluate_pair = self.make_eval_pair(spec)
+        train_idx = self.split_idx["train"]
+        bs = int(c["batch_size"])
+        self._ct_views = self._build_views()
+
+        # the finetune's resume bundle holds its state and the split's ids,
+        # so a killed run re-enters the finetune directly (the views above
+        # replay the same draws)
+        ckpt_every, ft_ckpt = self._ckpt_setup("ctft")
+        next_lr = float(c.get("next_lr", c["learning_rate"]))
+
+        def ft_opt(params):
+            return torch.optim.Adam(params, lr=next_lr)
+
+        resumed, _, ft_start, ft_meta = self._try_resume(
+            ft_ckpt, (spec,), ft_opt, extra={"clean_ids": None, "noisy_ids": None})
+        warmup = int(c["warmup"])
+        if resumed is not None:
+            s, ids = resumed
+            return self._finetune(spec, evaluate, s, ids["clean_ids"].numpy(),
+                                  ids["noisy_ids"].numpy(), max(ft_start, warmup),
+                                  float(ft_meta.get("best_val", 0.0)),
+                                  float(ft_meta.get("best_test", 0.0)), ckpt_every, ft_ckpt)
+
+        # warmup: co-teaching, the best-validation nets saved
+        s1, s2 = self.init_state(spec), self.init_state(spec)
+        best_val, best_params = 0.0, _detached(s1.params)
+        for epoch in range(warmup):
+            seeds, masks = self.epoch_seed_matrix(train_idx, bs)
+            nb = seeds.shape[0]
+            t_train = time.perf_counter()
+            agg = S.ct_epoch(spec, s1, s2, self.data_for(spec), seeds, masks, self.gen,
+                             float(self.rate_schedule[epoch]), self.fanouts, exact_leaf=exact)
+            rec = self._fetch_metrics(agg, nb)
+            t_train = time.perf_counter() - t_train
+            t_eval = time.perf_counter()
+            acc1, acc2 = evaluate_pair(s1.params, s2.params)
+            t_eval = time.perf_counter() - t_eval
+            self.metrics.write(event="warmup", epoch=epoch,
+                               val_acc_1=acc1["valid"], val_acc_2=acc2["valid"],
+                               loss_1=rec["loss_1"], loss_2=rec["loss_2"],
+                               epoch_train_s=t_train, epoch_eval_s=t_eval)
+            self.logger.info(f"   Warmup epoch {epoch + 1}/{warmup} --- "
+                             f"v1: {acc1['valid']:.3f} v2: {acc2['valid']:.3f}")
+            if acc1["valid"] > best_val:
+                best_val = acc1["valid"]
+                best_params = _detached(s1.params)
+                ckpt = f"{c['out_dir']}/models/{c['algo_type']}{self.output_name}"
+                save_checkpoint(ckpt + "_m1", s1.params, {"epoch": epoch})
+                save_checkpoint(ckpt + "_m2", s2.params, {"epoch": epoch})
+                self.logger.info("   Saved  model")
+
+        clean_ids, noisy_ids = self._split(spec, s1.params, s2.params, warmup - 1)
+        cr = self.clean[clean_ids].mean() if clean_ids.size else float("nan")
+        self.logger.info(f"clean ratio in clean {cr:.3f}; "
+                         f"nbr clean {clean_ids.shape[0]}, noisy {noisy_ids.shape[0]}")
+        self.metrics.write(event="split", clean_ratio=float(cr),
+                           train_clean_frac=float(self.clean[train_idx].mean()),
+                           n_clean=int(clean_ids.shape[0]), n_noisy=int(noisy_ids.shape[0]))
+        # oversample noisy to clean size (reference pipeline_contrast.py:336-338)
+        if noisy_ids.size and clean_ids.size > noisy_ids.size:
+            extra = self.rng.integers(0, clean_ids.size, clean_ids.size - noisy_ids.size)
+            noisy_ids = np.concatenate([noisy_ids, clean_ids[extra]])
+
+        # finetune of net 1's best-validation params on a fresh Adam at next_lr
+        s = S.state_from_params(best_params, ft_opt)
+        start_acc = evaluate(s.params)
+        self.logger.info(f"   finetune start (warmup best-val params): "
+                         f"val {start_acc['valid']:.3f} test {start_acc['test']:.3f}")
+        return self._finetune(spec, evaluate, s, clean_ids, noisy_ids, warmup, best_val,
+                              start_acc["test"], ckpt_every, ft_ckpt)
+
+    def _build_views(self) -> dict:
+        """The four (x, csr) views of the finetune's contrastive loss, built
+        once: two positive edge augmentations (rates prob_s and prob_l) drawn
+        from the host rng, a column shuffle (positive) and a row shuffle
+        (negative) of the features drawn from the device generator."""
+        c, g = self.config, self.graph
+        t0 = time.perf_counter()
+        if c.get("augment_edge", True):
+            edge_s = augment_edges_pos(g.edge_index, g.num_nodes, float(c["prob_s"]), self.rng)
+            edge_l = augment_edges_pos(g.edge_index, g.num_nodes, float(c["prob_l"]), self.rng)
+        else:
+            edge_s = edge_l = g.edge_index
+        t_edges = time.perf_counter() - t0
+        x = self.data.x
+        if c.get("augment_feat", True):
+            feat_s = shuffle_pos(self.gen, x, float(c["prob_s"]))
+            feat_l = shuffle_neg(self.gen, x)
+        else:
+            feat_s = feat_l = x
+        views = {
+            "orig": (x, self.data.csr),
+            "edge_s": (x, CSRGraph.from_coo(edge_s, g.num_nodes, self.device)),
+            "feat_s": (feat_s, self.data.csr),
+            "large": (feat_l, CSRGraph.from_coo(edge_l, g.num_nodes, self.device)),
+        }
+        build_s = time.perf_counter() - t0
+        self.metrics.write(event="views", build_s=build_s, edges_s=t_edges)
+        self.logger.info(f"   views built in {build_s:.1f}s (edge augmentation "
+                         f"{t_edges:.1f}s on the host)")
+        return views
+
+    def _finetune(self, spec, evaluate, s, clean_ids, noisy_ids, ft_start, best_val,
+                  best_test, ckpt_every, ft_ckpt):
+        """The finetune's epochs, shared by the fresh path and the resume."""
+        c = self.config
+        lam = float(c["lambda"])
+        bs2 = min(1024, max(clean_ids.size, 1))
+        ids = {"clean_ids": torch.from_numpy(clean_ids).long(),
+               "noisy_ids": torch.from_numpy(noisy_ids).long()}
+        ft_test = []
+        for epoch in range(ft_start, int(c["max_epochs"])):
+            cs, cm = self.epoch_seed_matrix(clean_ids, bs2)
+            ns, nm = self.epoch_seed_matrix(noisy_ids, bs2)
+            nb = min(cs.shape[0], ns.shape[0])  # zip semantics
+            t_train = time.perf_counter()
+            agg = S.contrast_epoch(spec, s, self.data, self._ct_views, cs[:nb], cm[:nb],
+                                   ns[:nb], nm[:nb], self.gen, self.fanouts, lam)
+            rec = self._fetch_metrics(agg, max(nb, 1))
+            t_train = time.perf_counter() - t_train
+            acc = evaluate(s.params)
+            best_test = max(best_test, acc["test"])
+            ft_test.append(acc["test"])
+            self.metrics.write(event="finetune", epoch=epoch, **rec, val_acc=acc["valid"],
+                               test_acc=acc["test"], epoch_train_s=t_train, steps=nb)
+            if ckpt_every and (epoch + 1) % ckpt_every == 0:
+                save_checkpoint(ft_ckpt, (S.state_tree(s), ids),
+                                {**self._ckpt_meta(0, epoch), "best_val": best_val,
+                                 "best_test": best_test})
+            self.logger.info(
+                f"   Train epoch {epoch + 1}/{c['max_epochs']} --- "
+                f"loss semi: {rec['loss_semi']:.3f} loss cont: {rec['loss_cont']:.3f} "
+                f"val acc {acc['valid']:.3f} test acc {acc['test']:.3f}")
+        final = evaluate(s.params)
+        extra = {"final_mean": final["test"],
+                 "last10_mean": float(np.mean(ft_test[-10:])) if ft_test else final["test"],
+                 "warmup_best_val": best_val}
+        self.metrics.write(event="summary_contrastive", mean=best_test, std=0.0,
+                           final=final["test"], **extra)
+        self.logger.info(f"   contrastive best test {best_test:.3f} (final {final['test']:.3f})")
+        return {"contrastive": RunSummary(best_test, 0.0, extra), "final": final}
+
+    def _split(self, spec, p1, p2, epoch: int):
+        """Small-loss partition of the train set (reference split(),
+        src/pipeline_contrast.py:110-131, which feeds SOFTMAX outputs to the
+        co-teaching loss; copied) -> (clean_ids, noisy_ids). The JAX package
+        takes the logits from the edge-list forward, whose scatter-add sums
+        in a varying order on the card, so that a boundary node could fall
+        on either side from one run to the next; here both nets' logits come
+        from the pair inference, the same function through the SpMM, whose
+        sums have a fixed order."""
+        l1, l2 = self._logits_fns(spec)[1](p1, p2)
+        fr = float(self.rate_schedule[epoch])
+        seeds, masks = self.epoch_seed_matrix(self.split_idx["train"],
+                                              int(self.config["batch_size"]), shuffle=False)
+        keep, noisy = [], []
+        for b_seeds, b_mask in zip(seeds, masks):
+            out = ct_loss(torch.softmax(l1[b_seeds], dim=-1), torch.softmax(l2[b_seeds], dim=-1),
+                          self.data.yhn[b_seeds], fr, self.data.clean[b_seeds],
+                          sample_mask=b_mask)
+            keep.append(out.keep_1)
+            noisy.append(out.noisy_1)
+        seeds = seeds.cpu().numpy()  # one sync: the masks are taken together
+        return (seeds[torch.stack(keep).cpu().numpy()],
+                seeds[torch.stack(noisy).cpu().numpy()])
 
 
 class PipelineSG(BasePipeline):
@@ -763,7 +999,7 @@ class PipelineA(BasePipeline):
         train_idx = self.split_idx["train"]
         bs = int(c["batch_size"])
         ckpt_every, ckpt_path = self._ckpt_setup("a")
-        states, _, start_epoch, meta = self._try_resume(ckpt_path, spec)
+        states, _, start_epoch, meta = self._try_resume(ckpt_path, (spec, spec))
         best_path = f"{c['out_dir']}/models/analysis{self.output_name}_best"
         if states is not None:
             s1, s2 = states
@@ -816,9 +1052,10 @@ class PipelineA(BasePipeline):
         return {"best_val": best_val, "confusion": cm}
 
 
-def _detached(params: dict) -> dict:
+def _detached(tree):
     """A copy of a params nest that later optimizer steps do not change."""
-    out = {"convs": [{k: v.detach().clone() for k, v in p.items()} for p in params["convs"]]}
-    if "noise" in params:
-        out["noise"] = params["noise"].detach().clone()
-    return out
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_detached(v) for v in tree]
+    return tree.detach().clone()

@@ -3,8 +3,9 @@
 Port of these parts of ``noise_gnn_tpu/train/steps.py``: ``GraphData``,
 ``_sample_tree``, ``TrainState``/``init_state``, ``ct_epoch_fn``,
 ``make_baseline_epoch``, ``_flat_subgraph``, ``_ctp_step_math``,
-``make_ctp_epoch``, ``_te_step_math``, ``make_te_epoch`` and
-``make_eval_fn``. Where JAX scans a jitted step
+``make_ctp_epoch``, ``_te_step_math``, ``make_te_epoch``,
+``_h_step_math``, ``make_h_epoch``, ``_contrast_step_math``,
+``make_contrast_train_epoch`` and ``make_eval_fn``. Where JAX scans a jitted step
 over the epoch's seed batches, the port runs a Python loop of eager steps:
 sample the tree on the device, gather its features, forward, loss,
 backward, optimizer step. Per-step metrics are added into one device
@@ -21,7 +22,8 @@ import torch
 from ..augment.features import shuffle_pos
 from ..augment.rewire import topk_rewire_tree
 from ..losses.consistency import fix_cr, get_uncertainty, neighbor_align
-from ..losses.contrastive import bce_expert_loss, discriminator_innerprod
+from ..losses.contrastive import (bce_expert_loss, bce_expert_loss2, discriminator_innerprod,
+                                  discriminator_innerprod2)
 from ..losses.coteaching import backward_correction, codi_loss, cross_entropy, ct_loss
 from ..models import nets
 from ..ops.sampler import sample_khop_tree
@@ -83,17 +85,25 @@ def state_from_params(params: dict, make_optimizer: Callable) -> TrainState:
 def state_tree(s: TrainState) -> dict:
     """The state as a nest of tensors for ``utils/checkpoint.py``: the
     params and, for each leaf of ``nets.parameters``, Adam's step and
-    moments (zeros before the first step)."""
+    moments. Every leaf has them once the state has stepped (``_step``
+    steps them all); a state that never stepped writes step 0 and zero
+    moments, which is what Adam starts from."""
+    if not s.opt.state:
+        return fresh_state_tree(s.params)
     opt = []
     for p in nets.parameters(s.params):
-        st = s.opt.state.get(p)
-        opt.append({
-            "step": (st["step"].detach().cpu().float().reshape(()) if st
-                     else torch.zeros((), dtype=torch.float32)),
-            "exp_avg": st["exp_avg"] if st else torch.zeros_like(p),
-            "exp_avg_sq": st["exp_avg_sq"] if st else torch.zeros_like(p),
-        })
+        st = s.opt.state[p]
+        opt.append({"step": st["step"].detach().cpu().float().reshape(()),
+                    "exp_avg": st["exp_avg"], "exp_avg_sq": st["exp_avg_sq"]})
     return {"params": s.params, "opt": opt}
+
+
+def fresh_state_tree(params: dict) -> dict:
+    """The tree of a state that has not stepped: step 0, zero moments."""
+    return {"params": params,
+            "opt": [{"step": torch.zeros((), dtype=torch.float32),
+                     "exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+                    for p in nets.parameters(params)]}
 
 
 def state_from_tree(tree: dict, make_optimizer: Callable) -> TrainState:
@@ -111,10 +121,18 @@ def _acc_count(logits, y_true, mask) -> torch.Tensor:
 
 
 def _step(states, loss) -> None:
+    """One optimizer step of every state on ``loss``. A leaf the loss does
+    not reach steps on a zero gradient, as optax steps every leaf of its
+    tree: torch's Adam would skip it (``.grad is None``), and its own step
+    count, and so its bias correction, would fall behind optax's global
+    count (and AdamW would not decay it)."""
     for s in states:
         s.opt.zero_grad(set_to_none=True)
     loss.backward()
     for s in states:
+        for p in nets.parameters(s.params):
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         s.opt.step()
 
 
@@ -373,6 +391,127 @@ def te_epoch(spec: nets.NetSpec, s1: TrainState, s2: TrainState, data: GraphData
             _acc_count(o2.detach(), yt, b_mask).float(),
         ])
     return dict(zip(TE_METRICS, tot))
+
+
+# ----------------------------------------------- pseudo-label co-teaching (H)
+
+
+def h_step_loss(spec: nets.NetSpec, pseudo_spec: nets.NetSpec, p1: dict, p2: dict, pp: dict,
+                data: GraphData, seeds, mask, gen: torch.Generator, forget_rate,
+                fanouts: tuple[int, ...], use_pseudo: bool = False, beta: float = 1.0,
+                rewire_rate: float = 0.2):
+    """Loss of one PipelineH step (JAX ``_h_step_math``): sample the tree,
+    run both nets on its flat subgraph, co-teaching on their logits; with
+    ``use_pseudo``, the pseudo net ``pp`` runs on the positive graph of a
+    top-k rewire of the RAW features and its detached softmax is a soft
+    target for each net's rejected seeds (``loss_add``), while the pseudo
+    net itself learns the noisy labels (``loss_pred``, twice the CE, as the
+    reference sums it for two identical clones). Returns
+    (loss, (ct, o1, o2, loss_pred, loss_add))."""
+    tb = sample_khop_tree(gen, data.csr, seeds, fanouts, mask)
+    x_sub, _, _, topo = _flat_subgraph(data, tb)
+    n_sub, bsz = x_sub.shape[0], tb.batch_size
+    yb, cb = data.yhn[seeds], data.clean[seeds]
+    o1 = nets.apply(spec, p1, x_sub, topo, num_nodes=n_sub, train=True, gen=gen)["logits"][:bsz]
+    o2 = nets.apply(spec, p2, x_sub, topo, num_nodes=n_sub, train=True, gen=gen)["logits"][:bsz]
+    ct = ct_loss(o1, o2, yb, forget_rate, cb, mask)
+    loss = ct.loss_1 + ct.loss_2
+    loss_pred = loss_add = torch.zeros((), dtype=torch.float32, device=x_sub.device)
+    if use_pseudo:
+        pos_topo, _ = topk_rewire_tree(x_sub, topo, rewire_rate, neg=False)
+        pl = nets.apply(pseudo_spec, pp, x_sub, pos_topo, num_nodes=n_sub, train=True,
+                        gen=gen)["logits"][:bsz]
+        pred_soft = torch.softmax(pl, dim=-1).detach()
+
+        def soft_ce(o, noisy):
+            w = noisy.float()
+            per = -(pred_soft * torch.log_softmax(o, dim=-1)).sum(dim=-1)
+            return (per * w).sum() / w.sum().clamp(min=1.0)
+
+        loss_add = soft_ce(o1, ct.noisy_1) + soft_ce(o2, ct.noisy_2)
+        wm = mask.float()
+        loss_pred = 2.0 * (cross_entropy(pl, yb) * wm).sum() / wm.sum().clamp(min=1.0)
+        loss = loss + loss_pred + beta * loss_add
+    return loss, (ct, o1, o2, loss_pred, loss_add)
+
+
+H_METRICS = ("loss_1", "loss_2", "loss_pred", "loss_add", "pure_ratio_1", "pure_ratio_2",
+             "correct_1", "correct_2")
+
+
+def h_epoch(spec: nets.NetSpec, pseudo_spec: nets.NetSpec, s1: TrainState, s2: TrainState,
+            sp: TrainState, data: GraphData, seeds: torch.Tensor, masks: torch.Tensor,
+            gen: torch.Generator, forget_rate: float, fanouts: tuple[int, ...],
+            use_pseudo: bool = False, beta: float = 1.0, rewire_rate: float = 0.2) -> dict:
+    """One PipelineH epoch over seed batches [nsteps, B] (JAX
+    ``make_h_epoch``). The JAX package steps the three nets under one joint
+    Adam; Adam is elementwise and ``_step`` steps every leaf every step
+    (the pseudo net's on zeros while ``use_pseudo`` is off), so the three
+    states here take exactly the joint optimizer's steps. Returns the
+    per-step metrics SUMMED (device scalars)."""
+    fr = torch.tensor(forget_rate, dtype=torch.float32, device=seeds.device)
+    tot = torch.zeros(len(H_METRICS), dtype=torch.float32, device=seeds.device)
+    for b_seeds, b_mask in zip(seeds, masks):
+        loss, (ct, o1, o2, lp, la) = h_step_loss(
+            spec, pseudo_spec, s1.params, s2.params, sp.params, data, b_seeds, b_mask, gen,
+            fr, fanouts, use_pseudo=use_pseudo, beta=beta, rewire_rate=rewire_rate)
+        _step((s1, s2, sp), loss)
+        yt = data.y[b_seeds]
+        tot += torch.stack([
+            ct.loss_1.detach(), ct.loss_2.detach(), lp.detach(), la.detach(),
+            ct.pure_ratio_1, ct.pure_ratio_2,
+            _acc_count(o1.detach(), yt, b_mask).float(),
+            _acc_count(o2.detach(), yt, b_mask).float(),
+        ])
+    return dict(zip(H_METRICS, tot))
+
+
+# ---------------------------------------- contrastive finetune (PipelineCT)
+
+
+def contrast_step_loss(spec: nets.NetSpec, p: dict, data: GraphData, views: dict,
+                       clean_seeds, clean_mask, noisy_seeds, noisy_mask, gen: torch.Generator,
+                       fanouts: tuple[int, ...], lam: float = 1.0):
+    """Loss of one PipelineCT finetune step (JAX ``_contrast_step_math``):
+    CE on the noisy labels of a batch of the clean ids (one tree on the
+    graph), plus ``lam`` x the two-positive contrastive BCE of a batch of
+    the noisy ids embedded in four views, each its own (x, csr) in
+    ``views``: "orig" (the anchor), "edge_s" and "feat_s" (the positives)
+    and "large" (the negative). Returns (loss, (loss_semi, loss_cont, o_semi))."""
+
+    def embed(x, csr, seeds, mask):
+        tb = sample_khop_tree(gen, csr, seeds, fanouts, mask)
+        return nets.apply_tree(spec, p, tb.gather_features(x), list(tb.masks), fanouts,
+                               train=True, gen=gen)
+
+    o_semi = embed(data.x, data.csr, clean_seeds, clean_mask)["logits"]
+    w = clean_mask.float()
+    loss_semi = (cross_entropy(o_semi, data.yhn[clean_seeds]) * w).sum() / w.sum().clamp(min=1.0)
+    h, h_s1, h_s2, h_l = (embed(*views[name], noisy_seeds, noisy_mask)["h"]
+                          for name in ("orig", "edge_s", "feat_s", "large"))
+    lp1, lp2, ln = discriminator_innerprod2(h, h_s1, h_s2, h_l)
+    loss_cont = bce_expert_loss2(lp1, lp2, ln, noisy_mask, noisy_mask)
+    return loss_semi + lam * loss_cont, (loss_semi, loss_cont, o_semi)
+
+
+CONTRAST_METRICS = ("loss_semi", "loss_cont", "loss", "correct")
+
+
+def contrast_epoch(spec: nets.NetSpec, s: TrainState, data: GraphData, views: dict,
+                   clean_seeds: torch.Tensor, clean_masks: torch.Tensor,
+                   noisy_seeds: torch.Tensor, noisy_masks: torch.Tensor, gen: torch.Generator,
+                   fanouts: tuple[int, ...], lam: float = 1.0) -> dict:
+    """One finetune epoch over zipped (clean, noisy) seed batches, each
+    [nsteps, B] (JAX ``make_contrast_train_epoch``). Returns the per-step
+    metrics SUMMED (device scalars)."""
+    tot = torch.zeros(len(CONTRAST_METRICS), dtype=torch.float32, device=clean_seeds.device)
+    for cs, cm, ns, nm in zip(clean_seeds, clean_masks, noisy_seeds, noisy_masks):
+        loss, (ls, lc, o) = contrast_step_loss(spec, s.params, data, views, cs, cm, ns, nm,
+                                               gen, fanouts, lam)
+        _step((s,), loss)
+        tot += torch.stack([ls.detach(), lc.detach(), loss.detach(),
+                            _acc_count(o.detach(), data.y[cs], cm).float()])
+    return dict(zip(CONTRAST_METRICS, tot))
 
 
 # ------------------------------------------------------------------- eval

@@ -5,7 +5,9 @@ the bundle's flattened leaves and a JSON sidecar with the leaves' names and
 ``meta``. Nothing is pickled, so loading needs neither ``torch.load`` nor
 ``allow_pickle``. A bundle is any nest of dicts (flattened in sorted key
 order, as a JAX pytree is), lists and tuples whose leaves are tensors; it is
-restored into the structure, dtypes and devices of a template nest.
+restored into the structure, dtypes and devices of a template nest. A
+``None`` leaf of the template takes the stored array as it is, whatever
+its shape, as a CPU tensor (the contrastive finetune's split ids).
 """
 
 from __future__ import annotations
@@ -77,6 +79,9 @@ def load_checkpoint(path: str, like):
                          f"expects {names[bad]!r}")
     leaves = []
     for (name, t), a in zip(tmpl, arrays):
+        if t is None:
+            leaves.append(torch.from_numpy(a))
+            continue
         if tuple(a.shape) != tuple(t.shape):
             raise ValueError(f"checkpoint leaf {name!r} has shape {a.shape}, template "
                              f"expects {tuple(t.shape)}")

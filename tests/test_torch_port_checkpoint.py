@@ -2,8 +2,9 @@
 
 The bundle round-trips and refuses a template of other leaves;
 kill-and-resume gives per-epoch metrics identical to the uninterrupted run
-for the co-teaching, the CTP and the TE loops (the JAX package's own test,
-tests/test_checkpoint.py:109, for the port); resuming a run whose last
+for the co-teaching, the CTP, the TE and the H loops and the contrastive
+finetune (the JAX package's own tests, tests/test_checkpoint.py:109-170,
+for the port); resuming a run whose last
 epoch is already in the checkpoint reproduces the JAX package's record of
 a best of 0.0; and load-and-eval of the same params gives the JAX
 package's accuracies; and a tiny ``PipelineCTP`` run through each
@@ -41,6 +42,8 @@ FAMILIES = {
     "ctp": ("epoch_ctp", dict(module="sagePL", algo_type="ctp")),
     # PipelineTES; the rewired contrast in the last epoch, after the resume
     "te": ("epoch_te", dict(module="sagePL", what="_test3", ct_tk=2)),
+    # PipelineH: three states, the pseudo net a sage beside two sageH
+    "h": ("epoch_h", dict(module="sageH", algo_type="hpseudo")),
 }
 
 
@@ -95,8 +98,8 @@ def _metrics(out_dir, event):
     return {(r["run"], r["epoch"]): r for r in rows if r.get("event") == event}
 
 
-@pytest.mark.parametrize("family", [pytest.param(f, marks=pytest.mark.slow) if f == "te" else f
-                                    for f in sorted(FAMILIES)])
+@pytest.mark.parametrize("family", [pytest.param(f, marks=pytest.mark.slow)
+                                    if f in ("te", "h") else f for f in sorted(FAMILIES)])
 def test_kill_and_resume_reproduces_metrics(tmp_path, family):
     """A run killed after epoch 1 and resumed to epoch 4 finishes with the
     uninterrupted run's per-epoch metrics, exactly: the bundle carries the
@@ -116,6 +119,41 @@ def test_kill_and_resume_reproduces_metrics(tmp_path, family):
     for pos in [(0, 2), (0, 3)]:  # post-resume epochs
         for k in set(want[pos]) - skip:
             assert got[pos][k] == want[pos][k], (pos, k)
+
+
+def test_kill_and_resume_ct_finetune(tmp_path):
+    """PipelineCT killed in the finetune (after its first epoch) and resumed
+    lands in the finetune directly, from the bundle's state and split ids,
+    and finishes with the uninterrupted run's finetune records exactly (the
+    JAX package's tests/test_checkpoint.py:148)."""
+    base = {**TDEFAULTS, **BASE, "algo_type": "contrastive", "module": "sageFC", "warmup": 2,
+            "prob_s": 0.05, "prob_l": 0.1, "device": "cpu"}
+    tmain(dict(copy.deepcopy(base), max_epochs=5, out_dir=str(tmp_path / "full")))
+    ckpt = str(tmp_path / "kr" / "models" / "stable_ft")
+    killed = dict(copy.deepcopy(base), max_epochs=3, out_dir=str(tmp_path / "kr"),
+                  ckpt_every=1, ckpt_path=ckpt)
+    tmain(copy.deepcopy(killed))
+    tmain(dict(copy.deepcopy(killed), resume=True, max_epochs=5))
+
+    def finetune(out):
+        rows = []
+        for f in sorted(glob.glob(str(out / "metrics" / "*.jsonl"))):
+            rows += [json.loads(line) for line in open(f)]
+        return rows
+
+    want = {r["epoch"]: r for r in finetune(tmp_path / "full") if r["event"] == "finetune"}
+    rows = finetune(tmp_path / "kr")
+    got = {r["epoch"]: r for r in rows if r["event"] == "finetune"}
+    assert sorted(want) == sorted(got) == [2, 3, 4]
+    assert [r["epoch"] for r in rows if r["event"] == "warmup"] == [0, 1]  # not re-run
+    for e in (3, 4):  # post-resume epochs
+        for k in set(want[e]) - {"ts", "epoch_train_s"}:
+            assert got[e][k] == want[e][k], (e, k)
+    summaries = [r for r in rows if r["event"] == "summary_contrastive"]
+    (full_summary,) = [r for r in finetune(tmp_path / "full")
+                       if r["event"] == "summary_contrastive"]
+    for k in ("mean", "final", "warmup_best_val"):
+        assert summaries[-1][k] == full_summary[k], k
 
 
 @pytest.mark.parametrize("family", ["co", "ctp"])

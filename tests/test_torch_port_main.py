@@ -60,21 +60,65 @@ def test_baseline_algo_dispatch(tmp_path):
     assert set(res) == {"baseline"}
 
 
-@pytest.mark.parametrize("over", [
-    {"algo_type": "contrastive"}, {"algo_type": "contrastive", "module": "sageFC"},
-    {"algo_type": "hpseudo"}, {"algo_type": "hpseudo", "module": "sageH"},
-    {"module": "gcn_head"}, {"module": "sageFC"}, {"module": "sageH"},
-])
+def test_gcn_head_runs_on_cpu(tmp_path):
+    """gcn_head, the one module outside the conv stacks, trains on trees
+    and evaluates through the edge-list forward, as the JAX package does
+    (one layer: its forward is the first conv alone, so only then are its
+    outputs the classes)."""
+    c = _cfg(tmp_path, module="gcn_head", module_compare="gcn_head", num_layers=1,
+             max_epochs=1)
+    res = main(c)
+    assert set(res) == {"nalgo", "baseline"}
+    assert all(0.0 <= summary[0] <= 1.0 for summary in res.values())
+    (rec,) = _records(c, "epoch_ct")
+    assert np.isfinite(rec["loss_1"]) and 0.0 <= rec["val_acc_1"] <= 1.0
+
+
+@pytest.mark.parametrize("over", [{"module": "gat"}, {"use_bn": True}])
 def test_not_yet_ported_raises(tmp_path, over):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         main(_cfg(tmp_path, **over))
 
 
-@pytest.mark.parametrize("name", ["config_h.yml", "config_contrast.yml"])
-def test_slice4_configs_raise(tmp_path, name):
-    """The two committed configs that slice 4 ports still raise."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(_cfg(tmp_path, name))
+@pytest.mark.parametrize("name,cls", [("config_h.yml", "PipelineH"),
+                                      ("config_contrast.yml", "PipelineCT")])
+def test_slice4_configs_dispatch(tmp_path, monkeypatch, name, cls):
+    """``hpseudo`` dispatches to PipelineH, ``contrastive`` to PipelineCT:
+    each config runs through ``main`` at a small size (synthetic arxiv at
+    scale 400, fanouts [3, 2], width 32). H: epoch 0 without the pseudo net,
+    epoch 1 with it. CT: 2 warmup epochs, the split, 2 finetune epochs
+    (ct_tk 1, so the split uses the config's forget rate)."""
+    import noise_gnn_tpu_torch.train.pipelines as P
+
+    ran = []
+    loop = getattr(P, cls).loop
+    monkeypatch.setattr(getattr(P, cls), "loop",
+                        lambda self: ran.append(type(self).__name__) or loop(self))
+    over = dict(synthetic_scale=400, nbr_neighbors=[3, 2], batch_size=256, hidden_size=32,
+                reinit_retries=0)
+    if name == "config_contrast.yml":
+        over.update(max_epochs=4, warmup=2, ct_tk=1)
+    c = _cfg(tmp_path, name, **over)
+    res = main(c)
+    assert ran == [cls]
+    if cls == "PipelineH":
+        mean, std = res
+        assert 0.0 <= mean <= 1.0 and std == 0.0
+        eps = _records(c, "epoch_h")
+        assert [r["epoch"] for r in eps] == [0, 1]
+        for r in eps:
+            for k in ("loss_1", "loss_2", "loss_pred", "loss_add", "val_acc_1"):
+                assert np.isfinite(r[k]), k
+        assert eps[0]["loss_pred"] == eps[0]["loss_add"] == 0.0
+        assert eps[1]["loss_pred"] > 0.0 and eps[1]["loss_add"] > 0.0
+    else:
+        assert set(res) == {"contrastive", "final"} and 0.0 <= res["contrastive"][0] <= 1.0
+        assert [r["epoch"] for r in _records(c, "warmup")] == [0, 1]
+        ft = _records(c, "finetune")
+        assert [r["epoch"] for r in ft] == [2, 3]
+        assert all(np.isfinite(r[k]) for r in ft for k in ("loss_semi", "loss_cont"))
+        (split,) = _records(c, "split")
+        assert split["n_clean"] > 0 and split["n_noisy"] > 0
 
 
 def _records(c, event=None):

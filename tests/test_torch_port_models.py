@@ -173,6 +173,84 @@ def test_stack_tree_matches(module, exact):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+@pytest.mark.parametrize("module", ["sageH", "sageFC", "gcn_head"])
+def test_slice4_modules_match(small, module):
+    """sageH (logits and the last hidden), sageFC (logits and the batch
+    normed projection) and gcn_head (the first conv alone), edge-list and
+    tree forwards, at atol 2e-5; a random batch-norm scale and bias and a
+    PReLU alpha come along through ``params_from_jax``."""
+    n, f, ei, x = small
+    js, ts = _spec_pair(module, f, 5, layers=3)
+    pj = jnets.init_params(jax.random.key(5), js)
+    if module == "sageFC":
+        pj["bnl"] = {"scale": jnp.linspace(0.5, 1.5, js.proj_size),
+                     "bias": jnp.linspace(-0.2, 0.2, js.proj_size)}
+    pt = params_from_jax(np_params(pj))
+    assert sorted(pt) == sorted(pj)
+    rng = np.random.default_rng(9)
+    b, fan = 6, (3, 2)
+    sizes = [b, b * fan[0], b * fan[0] * fan[1], b * fan[0] * fan[1] * 2]
+    xs = [rng.standard_normal((sz, f)).astype(np.float32) for sz in sizes]
+    ms = [np.ones(b, bool)] + [rng.random(sz) < 0.7 for sz in sizes[1:]]
+    fan3 = fan + (2,)
+
+    @jax.jit
+    def jax_side(pj, x, ei, xs, ms):
+        return (jnets.apply(js, pj, x, ei), jnets.apply_tree(js, pj, xs, ms, fan3))
+
+    want_e, want_t = jax_side(pj, jnp.asarray(x), jnp.asarray(ei), [jnp.asarray(v) for v in xs],
+                              [jnp.asarray(v) for v in ms])
+    got_e = tnets.apply(ts, pt, torch.from_numpy(x), torch.from_numpy(ei))
+    got_t = tnets.apply_tree(ts, pt, [torch.from_numpy(v) for v in xs],
+                             [torch.from_numpy(v) for v in ms], fan3)
+    for want, got in ((want_e, got_e), (want_t, got_t)):
+        assert set(got) == set(want) == ({"logits"} if module == "gcn_head" else {"logits", "h"})
+        for k in want:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=ATOL, err_msg=k)
+
+
+def test_batch_norm_and_prelu_match():
+    """Batch statistics with the population variance (eps 1e-5), and PReLU
+    at its 0.25 init and another alpha, at atol 1e-6."""
+    rng = np.random.default_rng(10)
+    x = (3 * rng.standard_normal((9, 5)) + 1).astype(np.float32)
+    pj = {"scale": jnp.asarray(rng.random(5) + 0.5, jnp.float32),
+          "bias": jnp.asarray(rng.standard_normal(5), jnp.float32)}
+    init = tL.batch_norm_init(5)
+    assert np.array_equal(init["scale"].numpy(), np.asarray(jL.batch_norm_init(5)["scale"]))
+    assert np.array_equal(init["bias"].numpy(), np.asarray(jL.batch_norm_init(5)["bias"]))
+    got = tL.batch_norm({k: torch.from_numpy(np.array(v)) for k, v in pj.items()},
+                        torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jL.batch_norm(pj, jnp.asarray(x))),
+                               atol=1e-6)
+    assert float(tL.prelu_init()["alpha"]) == float(jL.prelu_init()["alpha"]) == 0.25
+    for alpha in (0.25, -1.5):
+        got = tL.prelu({"alpha": torch.tensor(alpha)}, torch.from_numpy(x))
+        want = jL.prelu({"alpha": jnp.float32(alpha)}, jnp.asarray(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("module", ["sage", "gcn", "sagePL", "sageH", "sageFC", "gcn_head"])
+def test_params_round_trip(module):
+    """``params_from_jax`` then ``params_to_jax`` gives the JAX params back
+    exactly, ``proj``, ``bnl`` and ``act`` included; ``nets.parameters``
+    lists every leaf once; an entry the port does not carry raises."""
+    kw = dict(module=module, in_size=6, hidden_size=8, out_size=3, nbr_nodes=7)
+    pj = np_params(jnets.init_params(jax.random.key(6), jnets.NetSpec(**kw)))
+    pt = params_from_jax(pj)
+    back = params_to_jax(pt)
+    assert jax.tree.structure(back) == jax.tree.structure(pj)
+    for a, b in zip(jax.tree.leaves(pj), jax.tree.leaves(back)):
+        assert a.shape == b.shape and np.array_equal(a, b)
+    own = tnets.init_params(torch.Generator().manual_seed(0), tnets.NetSpec(**kw))
+    assert jax.tree.structure(params_to_jax(own)) == jax.tree.structure(pj)
+    assert len(tnets.parameters(pt)) == len(jax.tree.leaves(pj))
+    with pytest.raises(ValueError, match="not carried"):
+        params_from_jax({**pj, "bn1": {"scale": np.ones(6), "bias": np.zeros(6)}})
+    with pytest.raises(ValueError, match="keys"):
+        params_from_jax({**pj, "convs": [{**pj["convs"][0], "extra": np.ones(2)}]})
+
+
 def test_bf16_compute_returns_f32_logits(small):
     n, f, ei, x = small
     js, ts = _spec_pair("sage", f, 5, dtype="bfloat16")
@@ -198,7 +276,7 @@ def test_linear_and_make_network_match():
     for field in ("module", "hidden_size", "num_layers", "dropout", "compute_dtype", "aggr"):
         assert getattr(ts, field) == getattr(js, field)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tnets.make_network({**cfg, "module": "sageH"}, 7, 5)
+        tnets.make_network({**cfg, "module": "gat"}, 7, 5)
 
 
 def test_dropout_semantics():
