@@ -7,9 +7,11 @@ Phases (any failure exits nonzero; the last stdout line is printed only
 when every phase passed):
 
 1. Device: ``nvidia-smi`` name and power limit, the torch device; build both
-   CUDA kernels with ``nvcc``, both started together: the SpMM
-   (``noise_gnn_tpu_torch/csrc/spmm.cu``) and the gather ring
-   (``noise_gnn_tpu_torch/csrc/gather_ring.cu``), and report the build time.
+   CUDA kernels with ``nvcc`` and the host graph runtime with ``g++``, all
+   started together: the SpMM (``noise_gnn_tpu_torch/csrc/spmm.cu``), the
+   gather ring (``noise_gnn_tpu_torch/csrc/gather_ring.cu``) and
+   ``noise_gnn_tpu_torch/csrc/graph_runtime.cpp`` (which every CSR of the
+   port comes from), and report the build times.
 2. Kernels against their plain versions on the card. SpMM: mean and sum, f32
    and bf16 input and output, F in {100, 128, 256, 512}, on a graph with
    isolated rows (N not a multiple of any block size), a power-law graph with
@@ -69,7 +71,8 @@ when every phase passed):
    [15, 10, 5], bf16, exact leaf; the config's own train_frac 2, ~1292 steps
    per epoch: at train_frac 40, 65 steps per epoch, two epochs leave both
    nets at chance, as the JAX package's own products curves stay at chance
-   through their first ~1300 steps). The SpMM launch counts are reset just
+   through their first ~1300 steps). It logs the setup's CSR build seconds
+   (the native counting sort). The SpMM launch counts are reset just
    before and read just after: the leaf table (F = 100), the paired
    co-teaching eval (F = 512) and the baseline eval (F = 256) must all have
    gone through the kernel. Losses must be finite, and the last epoch's
@@ -105,7 +108,8 @@ when every phase passed):
    The bound counts each distinct block read once from device memory (the
    passes' re-reads may hit L2), the ids, and the final rings written.
 6. The SpMM at the main paths' shapes on the full graphs (products F = 100,
-   256 and 512 bf16; arxiv F = 128, 512 and 256 f32; mean). For each graph
+   256, 512 and, for phase 9b's use_bn pair eval, 200 bf16; arxiv F = 128,
+   512 and 256 f32; mean). For each graph
    it logs the largest in-degrees and the segment schedule's size and pack
    time on the card. At each shape the kernel is held against its plain
    version with the tolerance of phase 2 and two of its calls must be
@@ -162,9 +166,35 @@ when every phase passed):
    augmentation on the host), peak device memory, and the whole script's
    time.
 
+9. Slice 5. (a) The graph runtime on the synthetic arxiv graph: ``coo_to_csr``
+   and ``expand_rows`` bit-equal to their numpy plain versions (both timed),
+   ``hash_i32`` equal over two calls; with phase 3's products CSR seconds.
+   (b) ``use_bn``: first the pair eval at the products widths on a small
+   graph, card against CPU (f32 logits within 1e-4; in bf16, whose layer 1
+   is the [N, 200] bf16 SpMM, the card's distance from the CPU's f32 logits
+   within 4x the CPU's own bf16 distance plus 1e-3); then ``main`` on
+   ``configs/config_products.yml`` with ``use_bn: true`` (num_runs 1,
+   max_epochs 2, reinit_retries 0; exact leaf off under BN, so the tree
+   carries every hop): losses finite, validation above 1/47 for the better
+   co-teaching net and the baseline net, and the SpMM launched exactly at
+   the BN eval's shapes (pair 200, 512, 512 and single 100, 256, 256 bf16,
+   each epoch). (c) GAT: one forward at config_cora.yml's widths on a
+   2,000-node subgraph of the synthetic cora, card against CPU within 1e-5
+   (f32); then ``main`` on ``configs/config_cora.yml`` with
+   ``module_compare: gat``, ``train_type: both``, 2 epochs (sage
+   co-teaching beside a GAT baseline on flat subgraphs of 31,232 rows, the
+   dense [n, n] attention, and its eval on the full edge list): losses
+   finite, peak device memory logged, the SpMM counts of the sage pair eval;
+   then the SpMM checked and timed at cora's shapes (F = the features, and
+   1024, f32) as in phase 6. (d) Three GAT baseline steps, each in
+   ``trace("step")``, inside ``start_profile`` / ``stop_profile``: the Chrome
+   trace must exist and name three ``step`` regions (its kernel events on
+   the card are counted and logged). Each part's time is logged.
+
 Then it prints one ``{"kernels": [...]}`` line (errors from the full-size
-checks, launches from the main paths; the arxiv rows count the CTP, TE, H
-and CT runs', each path's also on its own), the ``nvidia-smi`` line and,
+checks, launches from the main paths; the products rows count phase 3's and
+9b's runs, the arxiv rows the CTP, TE, H and CT runs', the cora rows 9c's;
+each path's also on its own), the ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``. Details go to
 ``<out>/report.json``.
 """
@@ -186,6 +216,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from noise_gnn_tpu_torch import native
 from noise_gnn_tpu_torch.augment import rewire
 from noise_gnn_tpu_torch.eval.inference import FullGraphInference
 from noise_gnn_tpu_torch.graph.containers import CSRGraph, coo_to_csr
@@ -198,15 +229,17 @@ from noise_gnn_tpu_torch.ops.leaf_agg import fused_leaf_table
 from noise_gnn_tpu_torch.ops.tree_agg import TreeTopo
 from noise_gnn_tpu_torch.tools import gather_probe
 from noise_gnn_tpu_torch.train import steps
+from noise_gnn_tpu_torch.train.pipelines import PipelineS
 from noise_gnn_tpu_torch.utils.config import load_config
-from noise_gnn_tpu_torch.utils.profiling import (FP32_OPS_PER_S, HBM_BYTES_PER_S, time_ms,
-                                                  time_turns)
+from noise_gnn_tpu_torch.utils.profiling import (FP32_OPS_PER_S, HBM_BYTES_PER_S, start_profile,
+                                                  stop_profile, time_ms, time_turns, trace)
 
 CONFIG = "configs/config_products.yml"
 CTP_CONFIG = "configs/config_ctp.yml"
 TE_CONFIG = "configs/config_arxiv.yml"
 H_CONFIG = "configs/config_h.yml"
 CT_CONFIG = "configs/config_contrast.yml"
+CORA_CONFIG = "configs/config_cora.yml"
 TE_STEPS = 64  # train batches an epoch in phase 7
 SOURCE = "noise_gnn_tpu_torch/csrc/spmm.cu"
 REPLACES = "noise_gnn_tpu/ops/pallas_spmm.py:147"
@@ -215,6 +248,9 @@ GATHER_REPLACES = "tools/exp_dma_gather.py:56"
 # the main paths' SpMM shapes: (name, F, launches expected per run)
 SHAPES = (("leaf table", 100, 1), ("eval pair", 512, 4), ("eval single", 256, 4))
 CTP_SHAPES = (("arxiv leaf table", 128), ("arxiv eval pair", 512), ("arxiv load eval", 256))
+# the products SpMM shape only use_bn gives (phase 9b): layer 1 of the pair
+# eval aggregates [bn1(x) | bn1'(x)], [N, 2 x 100] bf16
+BN_SHAPES = (("BN eval pair layer 1", 200),)
 # the gather ring's small (depth, chunk) cases: depth 1, depth == chunk, and
 # depth < chunk (slots rewritten, the last copy kept); also run by
 # tests/test_torch_port_gpu.py
@@ -881,8 +917,11 @@ def run_main_path(out: Path) -> dict:
                                f"times on the main path, expected >= {want}")
     if sum(counts.values()) < 9:
         raise RuntimeError(f"SpMM launched {sum(counts.values())} times, expected >= 9")
+    (setup,) = _events(r, "setup")
+    log(f"  setup: load_network {setup['load_s']:.2f} s, CSR build (native counting sort) + "
+        f"placement {setup['csr_s']:.2f} s, noise {setup['noise_s']:.2f} s")
     return dict(config=CONFIG, wall_s=r["wall_s"], peak_bytes=r["peak_bytes"],
-                launches=counts, ct_epochs=ct, baseline_epochs=base,
+                launches=counts, ct_epochs=ct, baseline_epochs=base, setup=setup,
                 nalgo=list(res["nalgo"]), baseline=list(res["baseline"]))
 
 
@@ -1312,6 +1351,256 @@ def run_gather_path(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 9
+
+
+def run_native(build_s: float, main_rep: dict) -> dict:
+    """9a: the port's graph runtime on the synthetic arxiv graph against
+    its numpy plain versions, and the products CSR build of phase 3."""
+    g = load_network(load_config(CTP_CONFIG))
+    src, dst, n = g.edge_index[0], g.edge_index[1], g.num_nodes
+    t0 = time.perf_counter()
+    indptr, indices = native.coo_to_csr(src, dst, n)
+    t1 = time.perf_counter()
+    ref_indptr, ref_indices = native.coo_to_csr_reference(src, dst, n)
+    t2 = time.perf_counter()
+    rows = native.expand_rows(indptr, n)
+    t3 = time.perf_counter()
+    ref_rows = native.expand_rows_reference(indptr, n)
+    t4 = time.perf_counter()
+    hashes = [native.hash_i32(indices), native.hash_i32(indices)]
+    rep = dict(N=n, E=int(src.shape[0]), build_s=build_s,
+               csr_equal=bool(np.array_equal(indptr, ref_indptr)
+                              and np.array_equal(indices, ref_indices)),
+               rows_equal=bool(np.array_equal(rows, ref_rows)), hash_repeat_equal=hashes[0] == hashes[1],
+               coo_to_csr_s=t1 - t0, coo_to_csr_plain_s=t2 - t1, expand_rows_s=t3 - t2,
+               expand_rows_plain_s=t4 - t3, products_csr_s=main_rep["setup"]["csr_s"])
+    log(f"  built {native.build().name} from noise_gnn_tpu_torch/csrc/graph_runtime.cpp in "
+        f"{build_s:.1f} s (g++, in phase 1)")
+    log(f"  {g.name}: N={n} E={rep['E']}: coo_to_csr {rep['coo_to_csr_s']:.3f} s (numpy stable "
+        f"sort {rep['coo_to_csr_plain_s']:.3f} s), bit-equal {rep['csr_equal']}; expand_rows "
+        f"{rep['expand_rows_s']:.4f} s (numpy {rep['expand_rows_plain_s']:.4f} s), bit-equal "
+        f"{rep['rows_equal']}; hash_i32 repeat equal {rep['hash_repeat_equal']}")
+    log(f"  products CSR build + placement in phase 3's setup: {rep['products_csr_s']:.2f} s")
+    if not (rep["csr_equal"] and rep["rows_equal"] and rep["hash_repeat_equal"]):
+        raise RuntimeError(f"the native runtime disagrees with its plain versions: {rep}")
+    return rep
+
+
+def _bn_params(spec, seed: int) -> dict:
+    """Port-initialized params as numpy, the batch norms' scales and biases
+    moved off 1 and 0 so that each counts."""
+    p = params_to_jax(nets.init_params(torch.Generator().manual_seed(seed), spec))
+    rng = np.random.default_rng(seed)
+    for name in ("bn1", "bn2"):
+        p[name] = {k: (v + 0.2 * rng.standard_normal(v.shape)).astype(np.float32)
+                   for k, v in p[name].items()}
+    return p
+
+
+def check_small_bn(dev) -> dict:
+    """9b, before the run: the use_bn pair eval at the products widths (3 x
+    256 on 100 features, 47 classes) on a small graph, on the card against
+    the CPU. f32: logits within phase 2's 1e-4. bf16 (the path's dtype, its
+    layer 1 the [N, 200] bf16 SpMM): the card's distance from the CPU's f32
+    logits within 4x the CPU's own bf16 distance plus 1e-3."""
+    n, f, c, hidden = 5_000, 100, 47, 256
+    rng = np.random.default_rng(10)
+    deg = rng.integers(0, 16, n)
+    ei = np.stack([rng.integers(0, n, deg.sum()), np.repeat(np.arange(n), deg)]).astype(np.int32)
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    kw = dict(module="sage", in_size=f, hidden_size=hidden, out_size=c, num_layers=3,
+              dropout=0.0, use_bn=True)
+    init = [_bn_params(nets.NetSpec(**kw), s) for s in (1, 2)]
+
+    def pair(d, dtype):
+        spec = nets.NetSpec(**kw, compute_dtype=dtype)
+        infer = FullGraphInference(spec, CSRGraph.from_coo(ei, n, d))
+        return [o.cpu() for o in infer.pair(*(params_from_jax(q, d) for q in init),
+                                             torch.from_numpy(x).to(d))]
+
+    ref = pair("cpu", "float32")
+    f32_err = max((a - b).abs().max().item() for a, b in zip(pair(dev, "float32"), ref))
+    cpu_bf16 = max((a - b).abs().max().item() for a, b in zip(pair("cpu", "bfloat16"), ref))
+    spmm.launch_counts.clear()
+    gpu_bf16 = max((a - b).abs().max().item() for a, b in zip(pair(dev, "bfloat16"), ref))
+    counts = {int(k): int(v) for k, v in spmm.launch_counts.items()}
+    rep = dict(f32_logit_err=f32_err, bf16_card_err=gpu_bf16, bf16_cpu_err=cpu_bf16,
+               bf16_launches=counts,
+               ok=(f32_err <= 1e-4 and gpu_bf16 <= 4 * cpu_bf16 + 1e-3
+                   and counts == {200: 1, 512: 2}))
+    log(f"  use_bn pair eval at the products widths, N={n}, E={ei.shape[1]}: f32 logits card "
+        f"vs CPU max abs err {f32_err:.2e} (tol 1e-4); bf16 logits from the CPU's f32: card "
+        f"{gpu_bf16:.3e}, CPU bf16 {cpu_bf16:.3e} (card <= 4 x CPU + 1e-3); bf16 SpMM launches "
+        f"by F {counts} (expected {{200: 1, 512: 2}})")
+    if not rep["ok"]:
+        raise RuntimeError(f"the use_bn pair eval on the card disagrees with the CPU: {rep}")
+    return rep
+
+
+def run_bn_path(out: Path) -> dict:
+    """9b: co-teaching and the baseline under use_bn through ``main`` at the
+    products widths; the SpMM counts by F reset before and read after."""
+    cfg = load_config(CONFIG)
+    cfg.update(use_bn=True, num_runs=1, max_epochs=2, reinit_retries=0,
+               out_dir=str(out / "bn"))
+    seen: list = []
+    ct_epoch, baseline_epoch = steps.ct_epoch, steps.baseline_epoch
+    steps.ct_epoch = _counting_steps(ct_epoch, seen)
+    steps.baseline_epoch = _counting_steps(baseline_epoch, seen)
+    try:
+        r = _drive(cfg)
+    finally:
+        steps.ct_epoch, steps.baseline_epoch = ct_epoch, baseline_epoch
+    ct, base = _events(r, "epoch_ct"), _events(r, "epoch_baseline")
+    nsteps = seen[0]
+    for e in ct:
+        log(f"  BN CT epoch {e['epoch']}: train {e['epoch_train_s']:.3f} s "
+            f"({e['epoch_train_s'] / nsteps * 1e3:.1f} ms a step), eval {e['epoch_eval_s']:.3f} "
+            f"s, loss {e['loss_1']:.4f}/{e['loss_2']:.4f}, val {e['val_acc_1']:.4f}/"
+            f"{e['val_acc_2']:.4f}")
+    for e in base:
+        log(f"  BN baseline epoch {e['epoch']}: train {e['epoch_train_s']:.3f} s "
+            f"({e['epoch_train_s'] / nsteps * 1e3:.1f} ms a step), eval {e['epoch_eval_s']:.3f} "
+            f"s, loss {e['loss']:.4f}, val {e['val_acc']:.4f}")
+    log(f"  {nsteps} steps an epoch (no step cap); main(config) wall {r['wall_s']:.1f} s, peak "
+        f"device memory {r['peak_bytes'] / 2**30:.2f} GiB, SpMM launches by F {r['launches']}")
+    if len(ct) != 2 or len(base) != 2:
+        raise RuntimeError(f"expected 2 BN CT and 2 baseline epochs, got {len(ct)}, {len(base)}")
+    losses = [e[k] for e in ct for k in ("loss_1", "loss_2")] + [e["loss"] for e in base]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite BN loss: {losses}")
+    vals = [max(ct[-1]["val_acc_1"], ct[-1]["val_acc_2"]), base[-1]["val_acc"]]
+    if not min(vals) > 1 / 47:
+        raise RuntimeError(f"BN validation accuracy (co-teaching, baseline) not above 1/47: {vals}")
+    # two epochs of the pair eval's three layers (2F, 2H, 2H) and of the
+    # baseline's single eval's (F, H, H); no leaf table under BN
+    f, h = int(cfg["nbr_features"]), int(cfg["hidden_size"])
+    want = {f: 2, 2 * f: 2, h: 4, 2 * h: 4}
+    if r["launches"] != want:
+        raise RuntimeError(f"the BN run launched the SpMM {r['launches']} times by F, expected "
+                           f"{want}")
+    return dict(config=CONFIG, use_bn=True, steps=nsteps, wall_s=r["wall_s"],
+                peak_bytes=r["peak_bytes"], launches=r["launches"], ct_epochs=ct,
+                baseline_epochs=base,
+                ct_step_ms=ct[-1]["epoch_train_s"] / nsteps * 1e3,
+                baseline_step_ms=base[-1]["epoch_train_s"] / nsteps * 1e3)
+
+
+def check_small_gat(dev, g) -> dict:
+    """9c, before the run: one GAT forward at config_cora.yml's widths on
+    the subgraph of the synthetic cora's first 2,000 nodes, with an edge
+    mask, on the card against the CPU: f32, within 1e-5."""
+    n = 2_000
+    ei = g.edge_index[:, (g.edge_index[0] < n) & (g.edge_index[1] < n)]
+    em = np.random.default_rng(11).random(ei.shape[1]) < 0.8
+    spec = nets.NetSpec(module="gat", in_size=g.num_features, hidden_size=512,
+                        out_size=g.num_classes, num_layers=2, dropout=0.0)
+    init = params_to_jax(nets.init_params(torch.Generator().manual_seed(1), spec))
+
+    def fwd(d):
+        return nets._gat_forward(spec, params_from_jax(init, d), torch.from_numpy(g.x[:n]).to(d),
+                                 torch.from_numpy(ei).to(d), n, torch.from_numpy(em).to(d)).cpu()
+
+    got, want = fwd(dev), fwd("cpu")
+    err = (got - want).abs().max().item()
+    rep = dict(N=n, E=int(ei.shape[1]), max_abs_err=err, max_abs_logit=want.abs().max().item(),
+               ok=err <= 1e-5)
+    log(f"  GAT forward on {n} nodes, {rep['E']} edges (mask 0.8), {g.num_features} -> 512 -> "
+        f"{g.num_classes}: card vs CPU max abs err {err:.2e} (tol 1e-5; logits up to "
+        f"{rep['max_abs_logit']:.3f})")
+    if not rep["ok"]:
+        raise RuntimeError(f"the GAT forward on the card disagrees with the CPU: {rep}")
+    return rep
+
+
+def _gat_config(out: Path) -> dict:
+    cfg = load_config(CORA_CONFIG)
+    cfg.update(module_compare="gat", train_type="both", num_runs=1, max_epochs=2,
+               out_dir=str(out))
+    return cfg
+
+
+def run_gat_path(out: Path, g) -> dict:
+    """9c: sage co-teaching beside a GAT baseline through ``main`` on
+    config_cora.yml; SpMM counts (the sage pair eval) and peak memory."""
+    cfg = _gat_config(out / "gat")
+    seen: list = []
+    baseline_epoch = steps.baseline_epoch
+    steps.baseline_epoch = _counting_steps(baseline_epoch, seen)
+    try:
+        r = _drive(cfg)  # main: coteaching on cora -> PipelineS
+    finally:
+        steps.baseline_epoch = baseline_epoch
+    ct, base = _events(r, "epoch_ct"), _events(r, "epoch_baseline")
+    nsteps = seen[0]
+    rows = int(cfg["batch_size"]) * (1 + int(np.cumsum(np.cumprod(cfg["nbr_neighbors"]))[-1]))
+    for e in ct:
+        log(f"  sage CT epoch {e['epoch']}: train {e['epoch_train_s']:.3f} s, loss "
+            f"{e['loss_1']:.4f}/{e['loss_2']:.4f}, val {e['val_acc_1']:.4f}/{e['val_acc_2']:.4f}")
+    for e in base:
+        log(f"  GAT baseline epoch {e['epoch']}: train {e['epoch_train_s']:.3f} s "
+            f"({e['epoch_train_s'] / nsteps * 1e3:.1f} ms a step over flat subgraphs of "
+            f"{rows} rows), eval {e['epoch_eval_s']:.3f} s (dense "
+            f"[{g.num_nodes}, {g.num_nodes}]), loss {e['loss']:.4f}, val {e['val_acc']:.4f}")
+    log(f"  main(config) wall {r['wall_s']:.1f} s, peak device memory "
+        f"{r['peak_bytes'] / 2**30:.2f} GiB, SpMM launches by F {r['launches']}")
+    if len(ct) != 2 or len(base) != 2:
+        raise RuntimeError(f"expected 2 CT and 2 GAT baseline epochs, got {len(ct)}, {len(base)}")
+    losses = [e[k] for e in ct for k in ("loss_1", "loss_2")] + [e["loss"] for e in base]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite loss in the GAT run: {losses}")
+    want = {g.num_features: 1, 2 * int(cfg["hidden_size"]): 2}  # leaf table, pair layer 2
+    if r["launches"] != want:
+        raise RuntimeError(f"the GAT run launched the SpMM {r['launches']} times by F, "
+                           f"expected {want}")
+    return dict(config=CORA_CONFIG, module_compare="gat", steps=nsteps, wall_s=r["wall_s"],
+                peak_bytes=r["peak_bytes"], launches=r["launches"], ct_epochs=ct,
+                baseline_epochs=base, gat_step_ms=base[-1]["epoch_train_s"] / nsteps * 1e3)
+
+
+def run_profile(out: Path, dev) -> dict:
+    """9d: three GAT baseline steps of 9c's configuration, each in
+    ``trace("step")``, inside one ``start_profile`` / ``stop_profile``; the
+    Chrome trace must exist and name the step region."""
+    pipe = PipelineS(_gat_config(out / "profile"))
+    spec = pipe.spec_for("gat")
+    s = pipe.init_state(spec)
+    seeds, masks = pipe.epoch_seed_matrix(pipe.split_idx["train"], int(pipe.config["batch_size"]))
+    noise_mat = torch.as_tensor(pipe.noise_mat, dtype=torch.float32, device=dev)
+    start_profile(str(out / "profile" / "trace"))
+    for i in range(3):
+        j = i % seeds.shape[0]
+        with trace("step"):
+            steps.baseline_epoch(spec, s, pipe.data, seeds[j:j + 1], masks[j:j + 1], pipe.gen,
+                                 noise_mat, pipe.fanouts,
+                                 compare_loss=pipe.config["compare_loss"])
+            torch.cuda.synchronize()
+    path = Path(stop_profile())
+    events = json.loads(path.read_text())["traceEvents"]
+
+    def spans(cat):
+        return [ev["dur"] / 1e3 for ev in events if ev.get("name") == "step"
+                and ev.get("cat") == cat]
+
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+    rep = dict(trace=str(path), trace_bytes=path.stat().st_size,
+               step_ms=spans("user_annotation"), step_ms_on_card=spans("gpu_user_annotation"),
+               kernel_events=len(kernels),
+               kernel_ms=sum(ev.get("dur", 0) for ev in kernels) / 1e3)
+    # one stream, so kernels do not overlap: their summed time over the
+    # host's step spans is the card's busy share of the steps
+    rep["busy_share"] = rep["kernel_ms"] / max(sum(rep["step_ms"]), 1e-9)
+    log(f"  trace {path.name} ({rep['trace_bytes'] / 1e6:.1f} MB): 'step' spans on the host "
+        f"{['%.1f' % v for v in rep['step_ms']]} ms, on the card "
+        f"{['%.1f' % v for v in rep['step_ms_on_card']]} ms; {len(kernels)} kernel events, "
+        f"{rep['kernel_ms']:.1f} ms of kernel time: the card busy "
+        f"{100 * rep['busy_share']:.1f}% of the steps")
+    if len(rep["step_ms"]) != 3:
+        raise RuntimeError(f"the profile does not name 3 'step' regions: {rep}")
+    return rep
+
+
 # ----------------------------------------------------------------- timing
 
 
@@ -1408,11 +1697,19 @@ def run(out: Path) -> int:
     log(f"[1] device: {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"{kind} x{count}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # a fresh checkout has nothing built
-        libs = list(pool.map(lambda build: build(), (spmm.build, gather_ring.build)))
+
+    def timed(build):
+        t = time.perf_counter()
+        return build(), time.perf_counter() - t
+
+    # a fresh checkout has nothing built: both kernels (nvcc) and the host
+    # graph runtime (g++), all started together
+    with ThreadPoolExecutor(3) as pool:
+        (lib_s, _), (lib_g, _), (_, native_s) = pool.map(
+            timed, (spmm.build, gather_ring.build, native.build))
     build_s = time.perf_counter() - t0
-    log(f"    built {libs[0].name} from {SOURCE} and {libs[1].name} from {GATHER_SOURCE} "
-        f"in {build_s:.1f} s")
+    log(f"    built {lib_s.name} from {SOURCE} and {lib_g.name} from {GATHER_SOURCE} "
+        f"in {build_s:.1f} s (the graph runtime in {native_s:.1f} s beside them)")
 
     log("[2] kernels against their plain versions")
     cases = check_kernel(dev)
@@ -1438,7 +1735,8 @@ def run(out: Path) -> int:
     gather_rep = run_gather_path(dev)
 
     log("[6] SpMM check and timing at the main paths' shapes, full graphs")
-    rows = time_shapes(dev, CONFIG, [(name, f) for name, f, _ in SHAPES], torch.bfloat16)
+    rows = time_shapes(dev, CONFIG, [(name, f) for name, f, _ in SHAPES] + list(BN_SHAPES),
+                       torch.bfloat16)
     ctp_rows = time_shapes(dev, CTP_CONFIG, CTP_SHAPES, torch.float32)
 
     log("[7] TE path: arxiv, full width, with the rewired contrast")
@@ -1448,7 +1746,39 @@ def run(out: Path) -> int:
     h_rep = run_h_path(out)
     ct_rep = run_ct_path(out)
 
-    kernels = [spmm_row(row, main_rep["launches"].get(row["F"], 0)) for row in rows]
+    log("[9] slice 5: the native runtime, use_bn, GAT, the profiler")
+    t9 = time.perf_counter()
+    log("  [9a] the graph runtime")
+    native_rep = run_native(native_s, main_rep)
+    t9a = time.perf_counter()
+    log(f"  [9a] {t9a - t9:.1f} s")
+    log("  [9b] use_bn co-teaching and baseline: products, full width")
+    small_bn = check_small_bn(dev)
+    bn_rep = run_bn_path(out)
+    t9b = time.perf_counter()
+    log(f"  [9b] {t9b - t9a:.1f} s")
+    log("  [9c] GAT baseline beside sage co-teaching: cora, full width")
+    cora_cfg = load_config(CORA_CONFIG)
+    cora = load_network(cora_cfg)
+    small_gat = check_small_gat(dev, cora)
+    gat_rep = run_gat_path(out, cora)
+    cora_rows = time_shapes(dev, CORA_CONFIG,
+                            [("cora leaf table", cora.num_features),
+                             ("cora eval pair", 2 * int(cora_cfg["hidden_size"]))],
+                            torch.float32)
+    t9c = time.perf_counter()
+    log(f"  [9c] {t9c - t9b:.1f} s")
+    log("  [9d] the profiler around three GAT baseline steps")
+    profile_rep = run_profile(out, dev)
+    log(f"  [9d] {time.perf_counter() - t9c:.1f} s; phase 9 {time.perf_counter() - t9:.1f} s")
+
+    kernels = []
+    for row in rows:
+        by_path = {"co": main_rep["launches"].get(row["F"], 0),
+                   "bn": bn_rep["launches"].get(row["F"], 0)}
+        k = spmm_row(row, sum(by_path.values()))
+        k.update({f"launches_{p}": c for p, c in by_path.items()})
+        kernels.append(k)
     arxiv_runs = {"ctp": list(ctp_rep["runs"].values()), "te": [te_rep],
                   "h": list(h_rep["runs"].values()), "ct": list(ct_rep["runs"].values())}
     for row in ctp_rows:
@@ -1468,12 +1798,15 @@ def run(out: Path) -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=block_sel["ms"], library_rows_ms=row_sel["ms"], cluster=r["cluster"],
             active_clusters=r["active_clusters"]))
+    kernels += [spmm_row(row, gat_rep["launches"].get(row["F"], 0)) for row in cora_rows]
     report = dict(nvidia_smi=smi, device=kind, count=count, build_s=build_s,
                   checks=cases, gather_checks=gather_cases, small_path=small,
                   small_ctp=small_ctp, small_rewire=small_rewire, small_te=small_te,
                   small_h=small_h, small_ct=small_ct, main_path=main_rep, ctp_path=ctp_rep,
                   gather_path=gather_rep, timing=rows, ctp_timing=ctp_rows, te_path=te_rep,
-                  h_path=h_rep, ct_path=ct_rep, kernels=kernels,
+                  h_path=h_rep, ct_path=ct_rep, native=native_rep, small_bn=small_bn,
+                  bn_path=bn_rep, small_gat=small_gat, gat_path=gat_rep, cora_timing=cora_rows,
+                  profile=profile_rep, kernels=kernels,
                   script_s=time.perf_counter() - t_start)
     log(f"    whole script {report['script_s']:.1f} s")
     (out / "report.json").write_text(json.dumps(report, indent=1, default=str))

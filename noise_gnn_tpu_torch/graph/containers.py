@@ -3,7 +3,10 @@
 The host-side :class:`Graph` holds numpy arrays (features, labels, COO edges,
 splits), exactly as ``noise_gnn_tpu/graph/containers.py`` does;
 :class:`CSRGraph` is the device-resident CSR form (torch tensors) that the
-neighbor sampler and the full-graph SpMM consume.
+neighbor sampler and the full-graph SpMM consume. The CSR is built on the
+host by the native counting sort (``native.coo_to_csr``, the JAX package's
+own runtime in the port's copy), so both packages order every row's
+sources alike.
 """
 
 from __future__ import annotations
@@ -13,6 +16,25 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..native import coo_to_csr
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pad_edges(edge_index: np.ndarray, multiple: int = 128):
+    """Pad a [2, E] COO edge list to a multiple of ``multiple`` (at least
+    one multiple). Returns (padded_edge_index int32, edge_mask bool): the
+    padded entries point 0 -> 0 and are masked out."""
+    e = edge_index.shape[1]
+    e_pad = max(_round_up(e, multiple), multiple)
+    out = np.zeros((2, e_pad), dtype=np.int32)
+    out[:, :e] = edge_index
+    mask = np.zeros((e_pad,), dtype=bool)
+    mask[:e] = True
+    return out, mask
 
 
 @dataclass
@@ -69,19 +91,6 @@ class Graph:
             "valid": np.nonzero(self.val_mask)[0].astype(np.int32),
             "test": np.nonzero(self.test_mask)[0].astype(np.int32),
         }
-
-
-def coo_to_csr(src: np.ndarray, dst: np.ndarray, n: int):
-    """Destination-major CSR of a COO edge list: a stable sort by dst, so
-    each row keeps its sources in edge-list order (the order the JAX
-    package's native ``coo_to_csr`` produces). Returns
-    (indptr int64 [n+1], indices int32 [e])."""
-    dst = np.asarray(dst)
-    order = np.argsort(dst, kind="stable")
-    indices = np.asarray(src)[order].astype(np.int32)
-    indptr = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(dst, minlength=n), out=indptr[1:])
-    return indptr, indices
 
 
 @dataclass

@@ -63,11 +63,11 @@ def ct_loss(logits_1, logits_2, y_noise, forget_rate, clean_mask,
     diagnostics; ``sample_mask`` marks valid rows of a padded batch."""
     ce1 = cross_entropy(logits_1, y_noise)
     ce2 = cross_entropy(logits_2, y_noise)
-    return _exchange(ce1, ce2, logits_1, logits_2, y_noise, forget_rate,
+    return _exchange(ce1, ce2, logits_1, logits_2, y_noise, y_noise, forget_rate,
                      clean_mask, sample_mask)
 
 
-def _exchange(ce1, ce2, logits_1, logits_2, y_noise, forget_rate, clean_mask,
+def _exchange(ce1, ce2, logits_1, logits_2, y_noise_1, y_noise_2, forget_rate, clean_mask,
               sample_mask):
     dev = ce1.device
     ce1, ce2 = ce1.detach(), ce2.detach()  # selection is not differentiated
@@ -92,8 +92,8 @@ def _exchange(ce1, ce2, logits_1, logits_2, y_noise, forget_rate, clean_mask,
     pure_2 = (clean * keep2).sum() / denom
 
     # exchange: net1 trains on net2's selection and vice-versa
-    loss_1 = (cross_entropy(logits_1, y_noise) * keep2).sum() / denom
-    loss_2 = (cross_entropy(logits_2, y_noise) * keep1).sum() / denom
+    loss_1 = (cross_entropy(logits_1, y_noise_1) * keep2).sum() / denom
+    loss_2 = (cross_entropy(logits_2, y_noise_2) * keep1).sum() / denom
 
     noisy1, noisy2 = ~keep1, ~keep2
     if sample_mask is not None:
@@ -121,8 +121,21 @@ def codi_loss(logits_1, logits_2, y_noise, forget_rate, clean_mask,
     js = _js_per_sample(logits_1, logits_2).detach()
     ce1 = cross_entropy(logits_1, y_noise) - co_lambda * js
     ce2 = cross_entropy(logits_2, y_noise) - co_lambda * js
-    return _exchange(ce1, ce2, logits_1, logits_2, y_noise, forget_rate,
+    return _exchange(ce1, ce2, logits_1, logits_2, y_noise, y_noise, forget_rate,
                      clean_mask, sample_mask)
+
+
+def ct_loss2(logits_1, logits_2, y_noise_1, y_noise_2, forget_rate, clean_mask,
+             sample_mask=None) -> CTLossOut:
+    """CTLoss2: co-teaching where each net has its own noisy-label view
+    (reference losses.py:141-180): net i ranks its CE on ``y_noise_i``, and
+    the exchange trains net 1 on net 2's selection of its own view and
+    vice-versa. Unlike :func:`ct_loss`, the rejected masks are not limited
+    to ``sample_mask`` (as the JAX package's are not)."""
+    out = _exchange(cross_entropy(logits_1, y_noise_1), cross_entropy(logits_2, y_noise_2),
+                    logits_1, logits_2, y_noise_1, y_noise_2, forget_rate, clean_mask,
+                    sample_mask)
+    return out._replace(noisy_1=~out.keep_1, noisy_2=~out.keep_2)
 
 
 def backward_correction(logits, labels, noise_mat, sample_mask=None) -> torch.Tensor:

@@ -8,7 +8,10 @@ datasets and ``PipelineS`` on the small graphs, or, with ``what: _test2`` or
 ``PipelineCTP``, ``contrastive`` ``PipelineCT``, ``hpseudo`` ``PipelineH``,
 ``grid`` ``PipelineSG`` and ``analysis`` ``PipelineA``: every one of the 36
 configs under ``configs/`` dispatches. Runs on the CUDA card unless the
-config says ``device: 'cpu'``.
+config says ``device: 'cpu'``. As the JAX package's entry does, ``main``
+first configures glibc's malloc for large buffers (``utils/memory.py``),
+and the command line pre-faults ``warm_heap_gb`` GB of heap when the
+config asks for it.
 """
 
 from __future__ import annotations
@@ -18,11 +21,13 @@ import argparse
 from .train.pipelines import (PipelineA, PipelineCO, PipelineCT, PipelineCTP, PipelineH,
                               PipelineS, PipelineSG, PipelineTE, PipelineTES)
 from .utils.config import load_config
+from .utils.memory import configure_malloc, warm_heap
 
 OGB = ("ogbn-arxiv", "ogbn-products")
 
 
 def main(config: dict):
+    configure_malloc()
     algo = config["algo_type"]
     ogb = config["dataset_name"] in OGB
     if algo in ("codi", "coteaching"):
@@ -53,4 +58,9 @@ if __name__ == "__main__":
     parser.add_argument("-config", "--config", required=True, type=str,
                         help="configuration file path")
     args = parser.parse_args()
-    main(load_config(args.config))
+    config = load_config(args.config)
+    warm_gb = float(config.get("warm_heap_gb", 0))
+    if warm_gb > 0:
+        print(f"warming {warm_gb:g} GB of heap ...")
+        warm_heap(int(warm_gb * (1 << 30)))  # after configure_malloc, which it calls
+    main(config)

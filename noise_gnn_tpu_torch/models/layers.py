@@ -1,7 +1,7 @@
 """Functional GNN layers (params as plain dicts of tensors).
 
-Port of ``noise_gnn_tpu/models/layers.py`` for SAGEConv, GCNConv, linear,
-batch norm and PReLU. Weight
+Port of ``noise_gnn_tpu/models/layers.py``: SAGEConv, GCNConv, linear,
+batch norm, the SIMA similarity layer and PReLU. Weight
 matrices keep the JAX package's ``[in, out]`` layout, so ``x @ w``; biases
 are ``[out]``. Parameters stay f32 and are cast to the activation dtype at
 use, so a bf16 ``compute_dtype`` runs bf16 matmuls with f32 master weights.
@@ -159,11 +159,40 @@ def batch_norm_init(size: int, device=None) -> dict:
 def batch_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Normalization by the batch's statistics in training and at eval alike
     (the reference's nn.BatchNorm1d is only exercised in training), with
-    the population variance, as ``jnp.var``."""
-    mean = x.mean(dim=0, keepdim=True)
-    var = x.var(dim=0, unbiased=False, keepdim=True)
-    xn = (x - mean) * torch.rsqrt(var + eps)
+    the population variance. As ``jnp.mean``/``jnp.var`` do, the mean and
+    the two-pass variance are taken in f32 and rounded to x's dtype, and
+    the rest runs in x's dtype, ``eps`` included, with the reciprocal root
+    rounded once from f32 (the CPU's bf16 ``rsqrt`` rounds twice)."""
+    xf = x.float()
+    mean = xf.mean(dim=0, keepdim=True)
+    var = (xf - mean).square().mean(dim=0, keepdim=True)
+    mean, var = mean.to(x.dtype), var.to(x.dtype)
+    inv = torch.rsqrt((var + torch.tensor(eps, dtype=x.dtype, device=x.device)).float())
+    xn = (x - mean) * inv.to(x.dtype)
     return xn * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
+
+
+# ------------------------------------------------------------------- SIMA
+
+
+def sima_init(gen: torch.Generator, nbr_nodes: int, nbr_features: int, device=None) -> dict:
+    """Learned pairwise-similarity layer (reference attention.py:5-21 SIMA,
+    which no pipeline of the reference imports): two [F, N] projections,
+    standard-normal init."""
+    return {"w_i": torch.randn((nbr_features, nbr_nodes), generator=gen, device=device),
+            "w_j": torch.randn((nbr_features, nbr_nodes), generator=gen, device=device)}
+
+
+def sima(params: dict, x: torch.Tensor, rate: float = 0.5, train: bool = False,
+         gen: torch.Generator | None = None) -> torch.Tensor:
+    """similarity = drop(relu(x W_i)) @ drop(relu(x W_j))^T -> [N, N]: both
+    projections ReLU'd and dropped out on their own, each with a mask
+    drawn from ``gen`` (reference attention.py:13-20)."""
+    ai = torch.relu(x @ params["w_i"].to(x.dtype))
+    aj = torch.relu(x @ params["w_j"].to(x.dtype))
+    ai = dropout(gen, ai, rate, train)
+    aj = dropout(gen, aj, rate, train)
+    return ai @ aj.T
 
 
 # ------------------------------------------------------------------ PReLU

@@ -1,17 +1,24 @@
-"""SAGE, GCN, sagePL, sageH, sageFC and gcn_head stacks: edge-list forward
-(``apply``) and dense k-hop tree forward (``apply_tree``), with params as
-plain dicts of f32 tensors.
+"""SAGE, GCN, sagePL, sageH, sageFC, gcn_head and GAT networks: edge-list
+forward (``apply``) and dense k-hop tree forward (``apply_tree``), with
+params as plain dicts of f32 tensors.
 
-Port of ``noise_gnn_tpu/models/nets.py`` for the modules the port runs:
-``sage``, ``gcn``, ``sagePL``, ``sageH``, ``sageFC`` and ``gcn_head``; a
-NetSpec of ``gat`` or with ``use_bn`` raises until it is ported. Params
-have the JAX pytree's structure,
-``{"convs": [{"w_neigh", "w_root", "b"} | {"w", "b"}, ...]}`` with weights
-``[in, out]``, plus ``"noise"`` [nbr_nodes, in_size] for sagePL,
-``"proj"`` {"w", "b"} and ``"bnl"`` {"scale", "bias"} for sageFC and
-``"act"`` {"alpha"} for sageH and sageFC (``models/convert.py`` maps one to
-the other). With a bf16 ``compute_dtype`` activations run in bf16 and the
-outputs come back f32.
+Port of ``noise_gnn_tpu/models/nets.py``. Params have the JAX pytree's
+structure, ``{"convs": [{"w_neigh", "w_root", "b"} | {"w", "b"}, ...]}``
+with weights ``[in, out]``, plus ``"noise"`` [nbr_nodes, in_size] for
+sagePL, ``"proj"`` {"w", "b"} and ``"bnl"`` {"scale", "bias"} for sageFC,
+``"act"`` {"alpha"} for sageH and sageFC, and ``"bn1"`` [in_size] and
+``"bn2"`` [hidden] {"scale", "bias"} under ``use_bn``; GAT's are
+``{"layers": [{"w" [in, out], "a" [2 out, 1]}, ...]}`` (``models/convert.py``
+maps one to the other). With a bf16 ``compute_dtype`` activations run in
+bf16 and the outputs come back f32.
+
+``use_bn`` (reference sage.py:21-24) normalizes the input with ``bn1`` and
+each inter-layer ReLU's output with ``bn2`` by the batch's own statistics
+(``layers.batch_norm``), in the tree forward one depth array at a time.
+GAT (reference attention.py, dead code there) is dense masked attention
+over the [n, n] adjacency of an edge list; it has no tree forward, so it
+trains on the flat subgraph of a sampled tree (the baseline epoch) and
+evaluates on the full edge list.
 
 sagePL (reference sagePL.py) is a SAGE stack with a learned per-node input
 noise: ``apply`` runs a pure pass and a pass on ``x + 0.1 * normalize(noise
@@ -30,6 +37,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.scatter import fast_take
 from .layers import (
@@ -40,6 +48,7 @@ from .layers import (
     gcn_conv_init,
     gcn_conv_pre,
     gcn_conv_tree,
+    glorot,
     linear,
     linear_init,
     prelu_init,
@@ -49,7 +58,7 @@ from .layers import (
     sage_conv_tree,
 )
 
-MODULES = ("sage", "gcn", "sagePL", "sageH", "sageFC", "gcn_head")
+MODULES = ("sage", "gcn", "sagePL", "sageH", "sageFC", "gcn_head", "gat")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -72,10 +81,7 @@ class NetSpec:
 
     def __post_init__(self):
         if self.module not in MODULES:
-            raise NotImplementedError(
-                f"module {self.module!r} is not yet ported (ported: {MODULES})")
-        if self.use_bn:
-            raise NotImplementedError("use_bn is not yet ported")
+            raise ValueError(f"unknown module {self.module!r} (modules: {MODULES})")
 
     def layer_sizes(self) -> list[tuple[int, int]]:
         sizes = []
@@ -108,9 +114,14 @@ def make_network(config: dict, in_size: int, out_size: int, nbr_nodes: int = 1) 
 
 def init_params(gen: torch.Generator, spec: NetSpec, device=None) -> dict:
     """Glorot weights, zero biases (and sagePL's N(0, 1) per-node noise),
-    drawn from ``gen`` on ``device``."""
+    drawn from ``gen`` on ``device``; unit-scale, zero-bias batch norms."""
+    if spec.module == "gat":
+        return _gat_init(gen, spec, device)
     init = gcn_conv_init if spec.module == "gcn" else sage_conv_init
     params = {"convs": [init(gen, fin, fout, device) for fin, fout in spec.layer_sizes()]}
+    if spec.use_bn:
+        params["bn1"] = batch_norm_init(spec.in_size, device)
+        params["bn2"] = batch_norm_init(spec.hidden_size, device)
     if spec.module == "sagePL":
         # learned per-node input noise (reference sagePL.py:22)
         params["noise"] = torch.randn((spec.nbr_nodes, spec.in_size), generator=gen,
@@ -125,12 +136,12 @@ def init_params(gen: torch.Generator, spec: NetSpec, device=None) -> dict:
 
 def parameters(params: dict) -> list[torch.Tensor]:
     """The leaf tensors of a params dict, in a fixed order (for optimizers):
-    each conv's by sorted key, then ``noise``, ``proj``, ``bnl`` and ``act``
-    where present."""
-    leaves = [p[k] for p in params["convs"] for k in sorted(p)]
+    each conv's (or GAT layer's) by sorted key, then ``noise``, ``bn1``,
+    ``bn2``, ``proj``, ``bnl`` and ``act`` where present."""
+    leaves = [p[k] for p in params.get("convs", params.get("layers")) for k in sorted(p)]
     if "noise" in params:
         leaves.append(params["noise"])
-    for name in ("proj", "bnl", "act"):
+    for name in ("bn1", "bn2", "proj", "bnl", "act"):
         if name in params:
             leaves += [params[name][k] for k in sorted(params[name])]
     return leaves
@@ -160,16 +171,23 @@ def _l2_normalize_rows(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 def _stack_forward(spec, params, x, edge_index, n, edge_mask, train, gen):
-    """Conv -> (relu, dropout) between layers. Returns (logits, h): h is the
-    post-ReLU hidden of the last non-final layer, before its dropout
-    (reference sagePL.py:60)."""
+    """[bn1] -> conv -> (relu, [bn2], dropout) between layers. Returns
+    (logits, h): h is the post-ReLU (post-bn2) hidden of the last non-final
+    layer, before its dropout (reference sagePL.py:60)."""
     h = x
+    if spec.use_bn:
+        x = batch_norm(params["bn1"], x)
     for i, p in enumerate(params["convs"]):
         x = _conv(spec, p, x, edge_index, n, edge_mask)
         if i != spec.num_layers - 1:
-            x = h = torch.relu(x)
+            x = h = _relu_bn(spec, params, x)
             x = dropout(gen, x, spec.dropout, train)
     return x, h
+
+
+def _relu_bn(spec, params, x):
+    x = torch.relu(x)
+    return batch_norm(params["bn2"], x) if spec.use_bn else x
 
 
 def _heads(spec: NetSpec, params: dict, z: torch.Tensor, h: torch.Tensor) -> dict:
@@ -193,9 +211,11 @@ def apply(spec: NetSpec, params: dict, x: torch.Tensor, edge_index, *,
     to the graph's nodes, whose noise rows the noisy pass adds. ``branch``
     ("pure" or "noisy") runs only that sagePL pass and returns its three
     outputs: the JAX package's jitted steps never compute a pass whose
-    outputs they do not read."""
+    outputs they do not read. ``gat`` takes an edge list, not a TreeTopo."""
     n = num_nodes if num_nodes is not None else x.shape[0]
     x = x.to(spec.dtype)
+    if spec.module == "gat":
+        return {"logits": _gat_forward(spec, params, x, edge_index, n, edge_mask).float()}
     if spec.module == "gcn_head":
         # dropout of the input, then the first conv alone (reference gcn.py:19-23)
         x = dropout(gen, x, spec.dropout, train)
@@ -229,15 +249,27 @@ def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
     0..L-1-i to depths 0..L-1-i. With ``leaf_agg`` [N_{L-1}, F] (exact-leaf
     mode) the tree is one hop shallower and the first layer's deepest conv
     uses the precomputed neighbor aggregate. Dropout draws one mask per
-    depth array from ``gen``. Returns what :func:`apply` returns, with the
+    depth array from ``gen``. Under ``use_bn`` each depth array is
+    normalized on its own, by statistics over ALL its rows: the masked
+    (invalid) rows and a padded batch's seeds count, exactly as the JAX
+    package's ``jnp.mean``/``jnp.var`` over the whole array do (masking
+    them out would change the numbers); exact-leaf mode is refused there,
+    as in the JAX package. Returns what :func:`apply` returns, with the
     seeds as rows."""
     if spec.module == "sagePL":
         raise NotImplementedError("apply_tree for sagePL is not yet ported to "
                                   "noise_gnn_tpu_torch (the CTP and TE steps run apply "
                                   "on the flat subgraph)")
+    if spec.module == "gat":
+        raise NotImplementedError(
+            "module 'gat' has no tree forward: the JAX package trains it only in the "
+            "baseline epoch (the edge-list forward on the flat subgraph), and its "
+            "co-teaching step fails there, so the port refuses it too")
     exact = leaf_agg is not None
     if exact and spec.module == "gcn_head":
         raise ValueError("exact-leaf mode unsupported for module 'gcn_head'")
+    if exact and spec.use_bn:
+        raise ValueError("exact-leaf mode is incompatible with input batch norm")
     xs = [x.to(spec.dtype) for x in xs]
     if spec.module == "gcn_head":
         xs = [dropout(gen, x, spec.dropout, train) for x in xs]
@@ -250,6 +282,8 @@ def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
     if len(xs) != want:
         raise ValueError(f"need {want} depth arrays, got {len(xs)}")
     h = xs[0]
+    if spec.use_bn:
+        xs = [batch_norm(params["bn1"], x) for x in xs]
     for i, p in enumerate(params["convs"]):
         new_xs = []
         for d in range(L - i):
@@ -263,7 +297,49 @@ def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
             new_xs.append(_conv_tree(spec, p, xs[d], x_neigh, m_neigh))
         xs = new_xs
         if i != L - 1:
-            xs = [torch.relu(x) for x in xs]
+            xs = [_relu_bn(spec, params, x) for x in xs]
             h = xs[0]
             xs = [dropout(gen, x, spec.dropout, train) for x in xs]
     return _heads(spec, params, xs[0], h)
+
+
+# ------------------------------------------------------------------- GAT
+
+
+def _gat_init(gen: torch.Generator, spec: NetSpec, device=None) -> dict:
+    """Dense-adjacency GAT (reference attention.py:22-88): per layer a
+    Glorot linear ``w`` [F, F'] and attention vector ``a`` [2F', 1]."""
+    return {"layers": [{"w": glorot(gen, (fin, fout), device),
+                        "a": glorot(gen, (2 * fout, 1), device)}
+                       for fin, fout in spec.layer_sizes()]}
+
+
+def _gat_forward(spec, params, x, edge_index, num_nodes, edge_mask):
+    """Masked dense attention over the [n, n] adjacency of the edge list
+    (messages src -> dst): per layer, e = LeakyReLU_0.2(a_dst . Wh_i +
+    a_src . Wh_j) on the edges and -1e9 off them, a row softmax re-masked to
+    0, x = alpha @ Wh, and ELU between layers; a node without in-edges gets
+    0. Only the genuine edges of ``edge_mask`` enter the adjacency. (The JAX
+    package routes masked edges to (0, 0) and scatters the mask there,
+    duplicates and all; its result is defined, and equal to this, only where
+    node 0 has no genuine self-loop: ROADMAP queue 3.)"""
+    n = num_nodes
+    src, dst = edge_index[0].long(), edge_index[1].long()
+    if edge_mask is not None:
+        # masked edges land in a dead column n, sliced off: no host sync
+        src = torch.where(edge_mask, src, torch.full_like(src, n))
+    adj = torch.zeros((n, n + 1), dtype=torch.bool, device=x.device)
+    adj[dst, src] = True
+    adj = adj[:, :n]
+    x = x[:n]
+    for i, p in enumerate(params["layers"]):
+        wh = x @ p["w"].to(x.dtype)
+        f = wh.shape[-1]
+        a = p["a"][:, 0].to(x.dtype)
+        e = F.leaky_relu((wh @ a[f:])[:, None] + (wh @ a[:f])[None, :], 0.2)
+        e = torch.where(adj, e, e.new_tensor(-1e9))
+        alpha = torch.where(adj, torch.softmax(e, dim=1), e.new_tensor(0.0))
+        x = alpha @ wh
+        if i != spec.num_layers - 1:
+            x = F.elu(x)
+    return x

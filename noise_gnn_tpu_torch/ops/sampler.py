@@ -41,6 +41,11 @@ class TreeBatch(NamedTuple):
     def gather_features(self, x: torch.Tensor) -> list[torch.Tensor]:
         return [x[ids] for ids in self.n_ids]
 
+    @property
+    def num_sub_nodes(self) -> int:
+        """Rows of the flat subgraph view: the tree's nodes at every depth."""
+        return int(sum(ids.shape[0] for ids in self.n_ids))
+
     def flat_n_id(self) -> torch.Tensor:
         return torch.cat(self.n_ids)
 

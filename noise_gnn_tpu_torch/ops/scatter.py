@@ -91,6 +91,31 @@ def segment_count(segment_ids: torch.Tensor, num_segments: int,
     return out.index_add_(0, segment_ids.long(), ones)
 
 
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean of the (valid) ``data`` rows per segment, 0 for an empty one (PyG
+    semantics): the :func:`segment_sum` of the rows, rounded to their dtype,
+    over the count, in fp32."""
+    if mask is not None:
+        data = torch.where(mask[:, None], data, torch.zeros_like(data))
+    total = segment_sum(data, segment_ids, num_segments)
+    count = segment_count(segment_ids, num_segments, mask)
+    return (total.float() / count.clamp(min=1.0)[:, None]).to(data.dtype)
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Max of the (valid) ``data`` rows per segment, 0 for an empty one (and
+    wherever the max is not finite, as the JAX package's)."""
+    if mask is not None:
+        data = torch.where(mask[:, None], data, torch.full_like(data, float("-inf")))
+    ids = segment_ids.long().reshape(-1, *[1] * (data.dim() - 1)).expand_as(data)
+    out = torch.full((num_segments, *data.shape[1:]), float("-inf"), dtype=data.dtype,
+                     device=data.device)
+    out.scatter_reduce_(0, ids, data, reduce="amax")
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
 def _scatter_sum_f32(x, src, dst, num_nodes):
     """[num_nodes + 1, F] fp32 sums (last row = dead segment), chunked over
     edges when the message matrix would be large."""

@@ -140,13 +140,17 @@ class BasePipeline:
         # x and the CSR never change across runs: placed once, not per flip
         self._x = torch.from_numpy(g.x).to(self.device).to(x_dtype)
         self._y = torch.from_numpy(g.y).to(self.device).long()
-        self._csr = g.csr(self.device)
         t1 = time.perf_counter()
+        self._csr = g.csr(self.device)  # the native counting sort, then placed
+        t2 = time.perf_counter()
         self._flip_labels()
+        t3 = time.perf_counter()
         self.logger.info(
-            f"   setup: load_network {self._t_load:.1f}s, CSR + device placement "
-            f"{t1 - t0:.1f}s, noise {time.perf_counter() - t1:.1f}s on {self.device}"
+            f"   setup: load_network {self._t_load:.1f}s, x/y placement {t1 - t0:.1f}s, "
+            f"CSR build + placement {t2 - t1:.1f}s, noise {t3 - t2:.1f}s on {self.device}"
         )
+        self.metrics.write(event="setup", load_s=self._t_load, place_s=t1 - t0,
+                           csr_s=t2 - t1, noise_s=t3 - t2, device=str(self.device))
         nmat_dir = os.path.join(config.get("out_dir", "out"), "nmat")
         os.makedirs(nmat_dir, exist_ok=True)
         np.save(os.path.join(nmat_dir, f"{self.output_name}.npy"), self.noise_mat)
@@ -288,7 +292,12 @@ class BasePipeline:
 
     def _make_infer(self, spec) -> FullGraphInference:
         """Full-graph inference; layer 1 reuses the exact-leaf table's
-        aggregate of the raw features (built here if training did not)."""
+        aggregate of the raw features (built here if training did not).
+        Under ``use_bn`` layer 1 aggregates ``bn1(x)``, which changes with
+        the params, so no table applies and the SpMM runs at every layer
+        (JAX package pipelines.py:444-463)."""
+        if spec.use_bn:
+            return FullGraphInference(spec, self.data.csr)
         f = self.data.x.shape[-1]
         x_agg = self._fused_table(self._agg_kind(spec))[:, f:]
         return FullGraphInference(spec, self.data.csr, x_agg=x_agg)
@@ -296,8 +305,8 @@ class BasePipeline:
     def _logits_fns(self, spec):
         """(logits, logits_pair) of params on the whole graph: the SpMM
         inference for the conv-stack modules, and for the others
-        (gcn_head) the edge-list forward, as the JAX package evaluates
-        them."""
+        (gcn_head, gat) the edge-list forward over the graph's edge list, as
+        the JAX package evaluates them."""
         if spec.module in STACK_MODULES:
             infer = self._make_infer(spec)
             return (lambda p: infer(p, self.data.x),

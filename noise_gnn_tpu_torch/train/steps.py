@@ -186,15 +186,25 @@ def baseline_epoch(spec: nets.NetSpec, s: TrainState, data: GraphData,
                    noise_mat: torch.Tensor, fanouts: tuple[int, ...],
                    compare_loss: str = "normal", exact_leaf: bool = False) -> dict:
     """One plain-CE ('normal') or backward-correction ('back') epoch
-    (reference train(), src/pipeline.py:144-173); metrics summed."""
+    (reference train(), src/pipeline.py:144-173); metrics summed. ``gat``
+    (dense attention wants an edge list, not a tree) runs the edge-list
+    forward on the flat seed-first subgraph of the sampled tree, with its
+    edge mask, and keeps the seeds' rows (JAX package steps.py:351-370)."""
     tot = torch.zeros(len(BASELINE_METRICS), dtype=torch.float32, device=seeds.device)
     for b_seeds, b_mask in zip(seeds, masks):
-        tb, xs, la = _sample_tree(gen, data, b_seeds, b_mask, fanouts, exact_leaf)
+        if spec.module == "gat":
+            tb = sample_khop_tree(gen, data.csr, b_seeds, fanouts, b_mask)
+            x_sub = _flat_subgraph(data, tb)[0]
+            ei, e_mask = tb.flat_edges()
+            o = nets.apply(spec, s.params, x_sub, ei, num_nodes=x_sub.shape[0],
+                           edge_mask=e_mask, train=True, gen=gen)["logits"][:tb.batch_size]
+        else:
+            tb, xs, la = _sample_tree(gen, data, b_seeds, b_mask, fanouts, exact_leaf)
+            o = nets.apply_tree(spec, s.params, xs, list(tb.masks), tb.fanouts,
+                                train=True, gen=gen, leaf_agg=la)["logits"]
         yb = data.yhn[b_seeds]
         yt = data.y[b_seeds]
         cb = data.clean[b_seeds]
-        o = nets.apply_tree(spec, s.params, xs, list(tb.masks), tb.fanouts,
-                            train=True, gen=gen, leaf_agg=la)["logits"]
         if compare_loss == "back":
             loss = backward_correction(o, yb, noise_mat, b_mask)
         else:

@@ -107,7 +107,7 @@ DEFAULTS: dict = {
     "grid_tau": [0.1, 0.2, 0.3],
     # io
     "out_dir": "out",
-    "warm_heap_gb": 0,  # accepted for compat; unused by the port
+    "warm_heap_gb": 0,  # pre-fault heap pages (slow-first-touch hosts)
     # precision: bf16 features/activations when compute_dtype is bfloat16
     "param_dtype": "float32",
     "compute_dtype": "float32",

@@ -74,9 +74,16 @@ def test_gcn_head_runs_on_cpu(tmp_path):
     assert np.isfinite(rec["loss_1"]) and 0.0 <= rec["val_acc_1"] <= 1.0
 
 
-@pytest.mark.parametrize("over", [{"module": "gat"}, {"use_bn": True}])
-def test_not_yet_ported_raises(tmp_path, over):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+@pytest.mark.parametrize("over,error,match", [
+    # co-teaching trains on trees, and gat has none (its step fails in the
+    # JAX package too): refused, not invented
+    pytest.param({"module": "gat"}, NotImplementedError, "gat", id="over0"),
+    # the parallel package (data, halo and tensor parallelism) is not yet
+    # ported: a tensor-parallel degree above 1 is refused
+    pytest.param({"model_parallel": 2}, ValueError, "multi-device", id="over1"),
+])
+def test_not_yet_ported_raises(tmp_path, over, error, match):
+    with pytest.raises(error, match=match):
         main(_cfg(tmp_path, **over))
 
 

@@ -230,11 +230,13 @@ def test_batch_norm_and_prelu_match():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
-@pytest.mark.parametrize("module", ["sage", "gcn", "sagePL", "sageH", "sageFC", "gcn_head"])
+@pytest.mark.parametrize("module", ["sage", "gcn", "sagePL", "sageH", "sageFC", "gcn_head",
+                                    "gat"])
 def test_params_round_trip(module):
     """``params_from_jax`` then ``params_to_jax`` gives the JAX params back
-    exactly, ``proj``, ``bnl`` and ``act`` included; ``nets.parameters``
-    lists every leaf once; an entry the port does not carry raises."""
+    exactly, ``proj``, ``bnl``, ``act`` and GAT's ``layers`` included;
+    ``nets.parameters`` lists every leaf once; an entry the port does not
+    carry raises."""
     kw = dict(module=module, in_size=6, hidden_size=8, out_size=3, nbr_nodes=7)
     pj = np_params(jnets.init_params(jax.random.key(6), jnets.NetSpec(**kw)))
     pt = params_from_jax(pj)
@@ -246,9 +248,10 @@ def test_params_round_trip(module):
     assert jax.tree.structure(params_to_jax(own)) == jax.tree.structure(pj)
     assert len(tnets.parameters(pt)) == len(jax.tree.leaves(pj))
     with pytest.raises(ValueError, match="not carried"):
-        params_from_jax({**pj, "bn1": {"scale": np.ones(6), "bias": np.zeros(6)}})
+        params_from_jax({**pj, "head": {"scale": np.ones(6), "bias": np.zeros(6)}})
+    layers = "layers" if module == "gat" else "convs"
     with pytest.raises(ValueError, match="keys"):
-        params_from_jax({**pj, "convs": [{**pj["convs"][0], "extra": np.ones(2)}]})
+        params_from_jax({**pj, layers: [{**pj[layers][0], "extra": np.ones(2)}]})
 
 
 def test_bf16_compute_returns_f32_logits(small):
@@ -275,8 +278,11 @@ def test_linear_and_make_network_match():
     assert ts.layer_sizes() == js.layer_sizes() == [(7, 32), (32, 32), (32, 5)]
     for field in ("module", "hidden_size", "num_layers", "dropout", "compute_dtype", "aggr"):
         assert getattr(ts, field) == getattr(js, field)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tnets.make_network({**cfg, "module": "gat"}, 7, 5)
+    js, ts = jnets.make_network({**cfg, "module": "gat"}, 7, 5), tnets.make_network(
+        {**cfg, "module": "gat"}, 7, 5)
+    assert ts.module == js.module == "gat" and ts.layer_sizes() == js.layer_sizes()
+    with pytest.raises(ValueError, match="unknown module"):
+        tnets.make_network({**cfg, "module": "gin"}, 7, 5)
 
 
 def test_dropout_semantics():
