@@ -247,12 +247,38 @@ when every phase passed):
    split's sizes, which must equal one process's; best test accuracy
    within 0.02 of one process's.
 
+12. Slice 8, tensor parallelism (``model_parallel`` M = 2; the card is
+   one, so every rank shares it over gloo: no time here is a multi-card
+   time). (a) Phase 11a's small-width steps (now also co-teaching and the
+   back-corrected baseline), the states sharded, on two ranks at (D, M) =
+   (1, 2) and four at (2, 2), the six ranks started at once and run
+   beside (c), against
+   phase 11a's one-process steps on the card: summed metrics within 1e-5
+   relative (atol 1e-6), params (gathered whole) within 1e-4 and equal on
+   every rank, the CT projection bias within lr of its start (it feeds a
+   batch norm, as in phase 2), the rewires' picks equal. (b)
+   ``configs/config_products.yml`` at full width (3 x 256 bf16, exact
+   leaf) through ``main`` at (1, 2), one CT and one baseline epoch with
+   the train split cut to ``TP_STEPS`` batches (the split cache, in the
+   phase's own ``data_dir``, beside a link to phase 3's graph cache), and
+   the same run in this process: ms a step, each rank's peak, the model
+   axis's column gathers and input-gradient all-reduces a step (calls,
+   bytes, CUDA-event ms), the SpMM counts (each rank's leaf table must go
+   through the kernel), the ranks' results and param hashes equal,
+   validation within 0.02 of one process's. (c) ``configs/config_cora.yml``
+   (sage 2 x 512) at (1, 2), co-teaching for 2 epochs; then 1 epoch with
+   ``ckpt_every: 1`` and ``resume: true`` to 2: the resumed epoch's losses,
+   pure ratios and param hash bit-equal to the uninterrupted TP run's;
+   then the checkpoint (whole, the one format) loaded in one process with
+   ``do_train: false``: validation within 1e-3 of the resumed run's.
+
 Then it prints one ``{"kernels": [...]}`` line (errors from the full-size
 checks, launches from the main paths; the products rows count phase 3's,
-9b's and 10b's ranks' runs, the arxiv rows the CTP, TE, H and CT runs'
-and phase 11's ranks' and one-process runs', the cora rows 9c's; each
-path's also on its own), the ``nvidia-smi`` line and, last, ``{"ok":
-true, "device": {...}}``. Details go to ``<out>/report.json``.
+9b's, 10b's ranks' and 12b's ranks' and one-process runs, the arxiv rows
+the CTP, TE, H and CT runs' and phase 11's ranks' and one-process runs',
+the cora rows 9c's and 12c's ranks' and loaded runs; each path's also on
+its own), the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
+{...}}``. Details go to ``<out>/report.json``.
 """
 
 from __future__ import annotations
@@ -282,7 +308,7 @@ from noise_gnn_tpu_torch.graph.containers import CSRGraph, coo_to_csr
 from noise_gnn_tpu_torch.graph.datasets import load_network
 from noise_gnn_tpu_torch.main import main as port_main
 from noise_gnn_tpu_torch.models import nets
-from noise_gnn_tpu_torch.models.convert import params_from_jax, params_to_jax
+from noise_gnn_tpu_torch.models.convert import gather_params, params_from_jax, params_to_jax
 from noise_gnn_tpu_torch.ops import gather_ring, sddmm, spmm
 from noise_gnn_tpu_torch.ops.leaf_agg import fused_leaf_table
 from noise_gnn_tpu_torch.ops.tree_agg import TreeTopo
@@ -1720,10 +1746,14 @@ def _flat_params(tree, prefix: str = "") -> dict:
 def dp_worker(arg: str) -> int:
     """One rank of phase 10b or 10c (``chip_smoke.py --dp-worker JSON``):
     joins the gloo group, runs ``main`` on the config with its SpMM counts
-    and peak memory reset, then (10b) the DP f32 step; writes its report."""
+    and peak memory reset, then (10b) the DP f32 step; writes its report.
+    Phase 11's ranks go to :func:`epochs_worker`, phase 12's to
+    :func:`tp_worker`."""
     a = json.loads(arg)
     if a.get("epochs"):
         return epochs_worker(a)
+    if a.get("tp"):
+        return tp_worker(a)
     multihost.initialize(init_method=f"file://{a['pg']}", world_size=a["world"],
                          rank=a["rank"], backend="gloo")
     torch.cuda.reset_peak_memory_stats()
@@ -1755,11 +1785,10 @@ def dp_worker(arg: str) -> int:
     return 0
 
 
-def _run_ranks(out: Path, tag: str, cfg: dict, world: int, f32_step: bool,
-               timeout: int = 600, extra: dict | None = None) -> list:
-    """``world`` ranks of :func:`dp_worker` (with ``extra`` in its
-    argument) sharing ``cuda:0`` over gloo, started together and waited for
-    (killed if the wait runs out)."""
+def _start_ranks(out: Path, tag: str, cfg: dict | None, world: int, f32_step: bool,
+                 extra: dict | None = None):
+    """Start ``world`` ranks of :func:`dp_worker` (with ``extra`` in its
+    argument) sharing ``cuda:0`` over gloo; :func:`_wait_ranks` waits."""
     d = (out / tag).resolve()  # file:// takes an absolute path
     d.mkdir(parents=True, exist_ok=True)
     (d / "pg").unlink(missing_ok=True)
@@ -1772,8 +1801,16 @@ def _run_ranks(out: Path, tag: str, cfg: dict, world: int, f32_step: bool,
         procs.append(subprocess.Popen([sys.executable, __file__, "--dp-worker", arg],
                                       stdout=open(d / f"rank{r}.log", "w"),
                                       stderr=subprocess.STDOUT, env=env))
+    return d, procs
+
+
+def _wait_ranks(tag: str, started, timeout: int = 600) -> list:
+    """Each rank's report once all have exited 0 (killed if the wait runs
+    out, or as soon as one rank fails: the others would wait for it)."""
+    d, procs = started
+    world = len(procs)
     deadline = time.monotonic() + timeout
-    try:  # a rank that fails stops the others, which would wait for it
+    try:
         while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
             if any(p.returncode not in (None, 0) for p in procs):
                 break
@@ -1791,6 +1828,13 @@ def _run_ranks(out: Path, tag: str, cfg: dict, world: int, f32_step: bool,
                           for r in bad)
         raise RuntimeError(f"{tag}: the ranks exited {codes}\n{tails}")
     return [json.loads((d / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def _run_ranks(out: Path, tag: str, cfg: dict, world: int, f32_step: bool,
+               timeout: int = 600, extra: dict | None = None) -> list:
+    """``world`` ranks of :func:`dp_worker` sharing ``cuda:0`` over gloo,
+    started together and waited for."""
+    return _wait_ranks(tag, _start_ranks(out, tag, cfg, world, f32_step, extra), timeout)
 
 
 def _metrics(cfg: dict) -> list[dict]:
@@ -1997,12 +2041,13 @@ def run_fullgraph(out: Path) -> dict:
 
 
 def _small_epochs(dev, mesh) -> dict:
-    """One step of each epoch loop slice 7 made data-parallel (CTP, TE with the
-    rewired contrast, H with the pseudo net, the CT finetune, co-teaching
-    under ``use_bn``, the GAT baseline) at small widths on a random graph,
-    from seeded params and draws, over ``mesh`` (None: one process).
-    Returns each loop's metrics and params after the step, and every
-    rewire's picks, as numpy by name."""
+    """One step of each epoch loop (co-teaching, the back-corrected
+    baseline, CTP, TE with the rewired contrast, H with the pseudo net, the
+    CT finetune, co-teaching under ``use_bn``, the GAT baseline) at small
+    widths on a random graph, from seeded params and draws, over ``mesh``
+    (None: one process; with a model axis the states are sharded, phase
+    12). Returns each loop's metrics and params (gathered whole) after the
+    step, and every rewire's picks, as numpy by name."""
     rng = np.random.default_rng(11)
     n, f, c, b = 4000, 64, 10, 64
     edges = [rng.integers(0, n, (2, 40_000)).astype(np.int32) for _ in range(3)]
@@ -2023,7 +2068,7 @@ def _small_epochs(dev, mesh) -> dict:
     def states(spec, *keys):
         return [steps.state_from_params(
             nets.init_params(torch.Generator(device=dev).manual_seed(k), spec, dev),
-            lambda p: torch.optim.Adam(p, lr=1e-3)) for k in keys]
+            lambda p: torch.optim.Adam(p, lr=1e-3), mesh) for k in keys]
 
     def gen():
         return torch.Generator(device=dev).manual_seed(7)
@@ -2041,8 +2086,17 @@ def _small_epochs(dev, mesh) -> dict:
         out[f"{tag}.metrics"] = torch.stack([m[k] for k in sorted(m)]).cpu().numpy()
         for i, s in enumerate(ss):
             out.update({f"{tag}.{i}.{k}": v for k, v in
-                        _flat_params(params_to_jax(s.params)).items()})
+                        _flat_params(params_to_jax(gather_params(mesh, s.params))).items()})
 
+    sg = nets.NetSpec(module="sage", **base)
+    s1, s2 = states(sg, 12, 13)
+    keep("co", steps.ct_epoch(sg, s1, s2, data, seeds, mask, gen(), 0.3, (10, 5), mesh=mesh),
+         s1, s2)
+    (s,) = states(sg, 14)
+    keep("base", steps.baseline_epoch(sg, s, data, seeds, mask, gen(),
+                                      torch.full((c, c), 0.02, device=dev)
+                                      + 0.8 * torch.eye(c, device=dev), (10, 5),
+                                      compare_loss="back", mesh=mesh), s)
     steps.topk_rewire_tree = recording
     try:
         pl = nets.NetSpec(module="sagePL", nbr_nodes=n, **base)
@@ -2062,6 +2116,7 @@ def _small_epochs(dev, mesh) -> dict:
         steps.topk_rewire_tree = real
     fc = nets.NetSpec(module="sageFC", **base)
     (s,) = states(fc, 8)
+    out["init.ct.proj.b"] = s.params["proj"]["b"].detach().cpu().numpy().copy()
     keep("ct", steps.contrast_epoch(fc, s, data, views, seeds, mask, noisy, mask, gen(),
                                     (10, 5), 1.0, mesh), s)
     bn = nets.NetSpec(module="sage", use_bn=True, **base)
@@ -2078,7 +2133,8 @@ def _small_epochs(dev, mesh) -> dict:
 
 def run_epochs_nccl(out: Path, dev) -> dict:
     """Phase 11a: a one-rank NCCL group on the card; one step of each
-    epoch loop under the mesh bit-equal to the one-process step."""
+    epoch loop under the mesh bit-equal to the one-process step. Returns
+    the report and the one-process outputs (phase 12a's reference)."""
     (out / "pg11a").unlink(missing_ok=True)
     multihost.initialize(init_method=f"file://{(out / 'pg11a').resolve()}", world_size=1,
                          rank=0, backend="nccl")
@@ -2098,7 +2154,7 @@ def run_epochs_nccl(out: Path, dev) -> dict:
     if set(dp) != set(one) or not all(equal.values()) or len([k for k in one
                                                              if k.startswith("picks")]) != 2:
         raise RuntimeError(f"an epoch loop on a one-rank NCCL group differs from one process: {equal}")
-    return dict(bit_equal=equal, s=secs)
+    return dict(bit_equal=equal, s=secs), one
 
 
 def _te_probe_step(pipe, mesh) -> dict:
@@ -2408,6 +2464,306 @@ def run_dp_cut(out: Path, ct_rep: dict) -> dict:
     return reps
 
 
+# ------------------------------------------------------------------ phase 12
+
+TP_M = 2  # phase 12's model axis
+TP_STEPS = 128  # train batches an epoch in phase 12b
+
+
+def tp_worker(a: dict) -> int:
+    """One rank of phase 12 (``chip_smoke.py --dp-worker JSON`` with
+    ``tp``), joined to a gloo group of ranks sharing ``cuda:0``. "small":
+    the small-width steps of :func:`_small_epochs` over the (world / M, M)
+    mesh, written as npz. "main": ``main`` on each config of ``configs`` in
+    turn, recording per run the model axis's column gathers (calls, bytes
+    of the whole output, CUDA-event ms) and input-gradient all-reduces
+    (calls, f32 bytes, ms), each split by the train step they fell in (one
+    state: a baseline step; two: co-teaching), the SpMM counts, the peak
+    memory and the wall time."""
+    from noise_gnn_tpu_torch.parallel import mesh as mesh_mod
+
+    multihost.initialize(init_method=f"file://{a['pg']}", world_size=a["world"],
+                         rank=a["rank"], backend="gloo")
+    if a["tp"] == "small":
+        mesh = make_mesh(model_parallel=TP_M)
+        t0 = time.perf_counter()
+        res = _small_epochs(torch.device(DP_DEVICE), mesh)
+        np.savez(Path(a["out"]).with_suffix(".npz"), **res)
+        Path(a["out"]).write_text(json.dumps(dict(rank=a["rank"], data_rank=mesh.rank,
+                                                  model_rank=mesh.model_rank,
+                                                  s=time.perf_counter() - t0)))
+        torch.distributed.destroy_process_group()
+        return 0
+    events = []  # (kind, bytes, [start, end])
+    real_cols, real_bwd, real_step = (mesh_mod.all_gather_cols, mesh_mod._ModelInput.backward,
+                                      steps._step)
+
+    def record(kind, nbytes, fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = fn()
+        ev[1].record()
+        events.append((kind, nbytes, ev))
+        return res
+
+    def timed_cols(mesh, t):
+        return record("gather", t.numel() * t.element_size() * mesh.model_size,
+                      lambda: real_cols(mesh, t))
+
+    def timed_bwd(ctx, *grads):
+        return record("reduce", sum(g.numel() for g in grads) * 4,
+                      lambda: real_bwd(ctx, *grads))
+
+    def marked_step(states, loss, mesh=None):
+        res = real_step(states, loss, mesh)
+        events.append((f"step{len(states)}", 0, None))
+        return res
+
+    mesh_mod.all_gather_cols = timed_cols
+    mesh_mod._ModelInput.backward = staticmethod(timed_bwd)
+    steps._step = marked_step
+    runs = []
+    try:
+        for cfg in a["configs"]:
+            events.clear()
+            spmm.launch_counts.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = port_main(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            by = {}  # (kind, step kind) -> [calls, bytes, ms]
+            pending = []
+            for kind, nbytes, ev in events:
+                if ev is None:  # a step ended: its collectives are its own
+                    for k, b, e in pending:
+                        row = by.setdefault(f"{k}/{kind}", [0, 0, 0.0])
+                        row[0] += 1
+                        row[1] += b
+                        row[2] += e[0].elapsed_time(e[1])
+                    pending = []
+                else:
+                    pending.append((kind, nbytes, ev))
+            nsteps = {k: sum(1 for e in events if e[0] == k) for k in ("step1", "step2")}
+            runs.append(dict(wall_s=wall, peak_bytes=torch.cuda.max_memory_allocated(),
+                             launches={int(f): int(c) for f, c in spmm.launch_counts.items()},
+                             result={k: list(v) for k, v in res.items()}
+                             if isinstance(res, dict) else None,
+                             collectives=by, steps=nsteps))
+    finally:
+        mesh_mod.all_gather_cols, steps._step = real_cols, real_step
+        mesh_mod._ModelInput.backward = staticmethod(real_bwd)
+    Path(a["out"]).write_text(json.dumps(dict(rank=a["rank"], runs=runs), default=str))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _tp_ranks(out: Path, tag: str, world: int, mode: str, configs=None):
+    return _start_ranks(out, tag, None, world, f32_step=False,
+                        extra=dict(tp=mode, configs=configs))
+
+
+def start_tp_small(out: Path) -> dict:
+    """Start phase 12a's ranks: two at (D, M) = (1, 2) and four at (2, 2),
+    all sharing the card over gloo at once; :func:`finish_tp_small`
+    checks them."""
+    root = out / "tp12a"
+    shutil.rmtree(root, ignore_errors=True)
+    return {(d, TP_M): _tp_ranks(root, f"d{d}m{TP_M}", d * TP_M, "small") for d in (1, 2)}
+
+
+def finish_tp_small(started: dict, one: dict) -> dict:
+    """Phase 12a: the small-width steps of :func:`_small_epochs` on the
+    ranks :func:`start_tp_small` started, against the one-process steps of
+    phase 11a: summed metrics within 1e-5 relative (atol 1e-6), params
+    (gathered whole) within 1e-4, equal on every rank; the CT projection
+    bias, which feeds a batch norm, within lr of its start; the rewires'
+    picks equal."""
+    reps = {}
+    for (d, m), st in started.items():
+        ranks = _wait_ranks(f"12a ({d}, {m})", st)
+        outs = [dict(np.load(st[0] / f"rank{r}.npz")) for r in range(d * m)]
+        if set(outs[0]) != set(one):
+            raise RuntimeError(f"12a ({d}, {m}): other outputs than one process's")
+        rank_equal = all(_rank_rows_equal(outs[0], o) for o in outs[1:])
+        loops = sorted({k.split(".")[0] for k in one} - {"picks", "init"})
+        errs = {}
+        for loop in loops:
+            keys = [k for k in one if k.split(".")[0] == loop and not k.endswith(".metrics")]
+            want = one[f"{loop}.metrics"]
+            met = max(float(np.max(np.abs(o[f"{loop}.metrics"] - want)
+                                   / (1e-6 + 1e-5 * np.abs(want)))) for o in outs)
+            par = max(float(np.abs(o[k] - one[k]).max()) for o in outs for k in keys
+                      if k != "ct.0.proj.b")
+            errs[loop] = dict(metrics_over_tol=met, params=par)
+        bias = max(float(np.abs(o["ct.0.proj.b"] - one["init.ct.proj.b"]).max()) for o in outs)
+        picks_equal = all(np.array_equal(o[k], one[k]) for o in outs for k in one
+                          if k.startswith("picks"))
+        reps[f"d{d}m{m}"] = dict(errors=errs, ranks_equal=rank_equal, picks_equal=picks_equal,
+                                 ct_proj_b_from_init=bias,
+                                 grid=sorted((r["data_rank"], r["model_rank"]) for r in ranks),
+                                 rank_s=[r["s"] for r in ranks])
+        shown = {k: (f"{v['metrics_over_tol']:.3f}", f"{v['params']:.2e}") for k, v in errs.items()}
+        log(f"  12a ({d}, {m}) on {d * m} ranks sharing the card over gloo: by loop, the summed "
+            f"metrics' largest |TP - one| over (1e-6 + 1e-5 |one|) and the params' largest "
+            f"|TP - one| {shown}; ranks equal {rank_equal}, picks equal {picks_equal}, CT proj "
+            f"bias {bias:.2e} from its start")
+        bad = [k for k, v in errs.items()
+               if not (v["metrics_over_tol"] <= 1.0 and v["params"] <= 1e-4)]
+        if bad or not rank_equal or not picks_equal or not bias <= 1e-3 * 1.001:
+            raise RuntimeError(f"12a ({d}, {m}): steps out of tolerance {bad}, ranks equal "
+                               f"{rank_equal}, picks equal {picks_equal}, bias {bias}")
+    return reps
+
+
+def _link_products_cache(data_dir: Path) -> None:
+    """Point ``data_dir``'s synthetic products cache at the default one
+    (phase 3 generated it there), so that a run with its own split cache
+    loads the graph instead of generating it again."""
+    cfg = load_config(CONFIG)
+    name = f"{cfg['dataset_name']}_seed{int(cfg['seed'])}_scale1_v3.npz"
+    src = (Path(cfg["data_dir"]) / "synthetic" / name).resolve()
+    dst = data_dir / "synthetic" / name
+    if src.exists() and not dst.exists():
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.symlink_to(src)
+
+
+def _tp_collectives(run: dict, nsteps: int) -> dict:
+    """Per train step of each branch: the model axis's column gathers and
+    input-gradient all-reduces (calls, bytes, ms)."""
+    out = {}
+    for key, (calls, nbytes, ms) in run["collectives"].items():
+        kind, step = key.split("/")
+        branch = {"step2": "ct", "step1": "baseline"}[step]
+        out[f"{branch} {kind}"] = dict(calls=calls / nsteps, bytes=nbytes / nsteps,
+                                       ms=ms / nsteps)
+    return out
+
+
+def run_tp_products(out: Path) -> dict:
+    """Phase 12b: ``main`` on config_products.yml at full width on two
+    ranks at (1, 2) sharing the card over gloo, one CT and one baseline
+    epoch of ``TP_STEPS`` batches (the train split cut through the split
+    cache), beside the same run in this process."""
+    root = out / "tp12b"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = load_config(CONFIG)
+    cfg.update(num_runs=1, max_epochs=1, reinit_retries=0, load_index=True,
+               device=DP_DEVICE, data_dir=str((root / "data").resolve()))
+    _link_products_cache(root / "data")
+    cut = _cut_split(cfg, TP_STEPS)
+    nsteps = -(-cut["kept"] // int(cfg["batch_size"]))
+    one = _drive(dict(cfg, out_dir=str(root / "one")))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_cfg = dict(cfg, model_parallel=TP_M, out_dir=str(root / "ranks"))
+    t0 = time.perf_counter()
+    ranks = _wait_ranks("12b", _tp_ranks(root, "ranks", TP_M, "main", [tp_cfg]), timeout=900)
+    wall = time.perf_counter() - t0
+    runs = [r["runs"][0] for r in ranks]
+    recs, one_recs = _metrics(tp_cfg), one["records"]
+    rows = {}
+    for tag, rs in (("tp", recs), ("one", one_recs)):
+        ct = [r for r in rs if r.get("event") == "epoch_ct"]
+        base = [r for r in rs if r.get("event") == "epoch_baseline"]
+        rows[tag] = dict(ct=ct, base=base,
+                         ct_step_ms=[e["epoch_train_s"] / nsteps * 1e3 for e in ct],
+                         base_step_ms=[e["epoch_train_s"] / nsteps * 1e3 for e in base])
+    coll = [_tp_collectives(r, nsteps) for r in runs]
+    tp, solo = rows["tp"], rows["one"]
+    for tag in ("tp", "one"):
+        r = rows[tag]
+        log(f"  12b {tag}: {nsteps} steps an epoch; ms a step CT {np.round(r['ct_step_ms'], 2)} "
+            f"baseline {np.round(r['base_step_ms'], 2)}; CT loss "
+            f"{r['ct'][0]['loss_1']:.6f}/{r['ct'][0]['loss_2']:.6f}, val "
+            f"{r['ct'][0]['val_acc_1']:.4f}/{r['ct'][0]['val_acc_2']:.4f}; baseline loss "
+            f"{r['base'][0]['loss']:.6f} val {r['base'][0]['val_acc']:.4f}")
+    for r, run, c in zip(ranks, runs, coll):
+        shown = {k: (round(v["calls"], 2), int(v["bytes"]), round(v["ms"], 2))
+                 for k, v in c.items()}
+        log(f"  12b rank {r['rank']} (2 ranks sharing one card over gloo): main wall "
+            f"{run['wall_s']:.1f} s, peak {run['peak_bytes'] / 2**30:.2f} GiB, SpMM launches by "
+            f"F {run['launches']}; a step's model-axis collectives {shown} (calls, bytes "
+            f"whole, ms)")
+    log(f"  12b one process: main wall {one['wall_s']:.1f} s, peak "
+        f"{one['peak_bytes'] / 2**30:.2f} GiB, SpMM launches by F {one['launches']}; the two "
+        f"ranks' wall {wall:.1f} s")
+    if len(tp["ct"]) != 1 or len(tp["base"]) != 1:
+        raise RuntimeError("12b: expected one CT and one baseline epoch on the ranks")
+    losses = [tp["ct"][0]["loss_1"], tp["ct"][0]["loss_2"], tp["base"][0]["loss"]]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"12b: non-finite TP loss: {losses}")
+    if runs[0]["result"] != runs[1]["result"]:
+        raise RuntimeError(f"12b: the ranks' results differ: {runs[0]['result']} "
+                           f"{runs[1]['result']}")
+    if not all(e.get("param_hash") for e in tp["ct"] + tp["base"]):
+        raise RuntimeError("12b: an epoch record of the ranks lacks its param hash")
+    vals = [max(tp["ct"][0]["val_acc_1"], tp["ct"][0]["val_acc_2"]), tp["base"][0]["val_acc"]]
+    ones = [max(solo["ct"][0]["val_acc_1"], solo["ct"][0]["val_acc_2"]),
+            solo["base"][0]["val_acc"]]
+    if not max(abs(a - b) for a, b in zip(vals, ones)) <= 0.02:
+        raise RuntimeError(f"12b: TP validation {vals} not within 0.02 of one process's {ones}")
+    if not all(run["launches"].get(100, run["launches"].get("100", 0)) >= 1 for run in runs):
+        raise RuntimeError(f"12b: a rank did not build its leaf table with the SpMM: "
+                           f"{[run['launches'] for run in runs]}")
+    if not all(c.get("ct gather", {}).get("calls") for c in coll):
+        raise RuntimeError("12b: no model-axis gather in the co-teaching steps")
+    return dict(config=CONFIG, m=TP_M, steps=nsteps, train_cut=cut, epochs=rows,
+                ranks=[dict(rank=r["rank"], **{k: v for k, v in run.items() if k != "result"})
+                       for r, run in zip(ranks, runs)],
+                collectives=coll, one_wall_s=one["wall_s"], one_peak_bytes=one["peak_bytes"],
+                one_launches=one["launches"], wall_s=wall, val_tp=vals, val_one=ones,
+                launches_all=[run["launches"] for run in runs] + [one["launches"]])
+
+
+def run_tp_cora(out: Path) -> dict:
+    """Phase 12c: ``main`` on config_cora.yml (sage 2 x 512) at (1, 2),
+    co-teaching for 2 epochs; then killed after epoch 0 and resumed; then
+    the checkpoint loaded in this process with ``do_train: false``."""
+    root = out / "tp12c"
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = str((root / "ckpt" / "ct").resolve())
+    cfg = load_config(CORA_CONFIG)
+    cfg.update(num_runs=1, max_epochs=2, reinit_retries=0, train_type="nalgo",
+               device=DP_DEVICE, model_parallel=TP_M)
+    full = dict(cfg, out_dir=str(root / "full"))
+    killed = dict(cfg, out_dir=str(root / "killed"), max_epochs=1, ckpt_every=1,
+                  ckpt_path=ckpt)
+    resumed = dict(killed, out_dir=str(root / "resumed"), max_epochs=2, resume=True)
+    ranks = _wait_ranks("12c", _tp_ranks(root, "ranks", TP_M, "main",
+                                         [full, killed, resumed]))
+    want = [e for e in _metrics(full) if e.get("event") == "epoch_ct"]
+    got = [e for e in _metrics(resumed) if e.get("event") == "epoch_ct"]
+    loaded = _drive(dict(cfg, out_dir=str(root / "loaded"), model_parallel=1, do_train=False,
+                         ckpt_path=ckpt))
+    acc1, acc2 = loaded["result"]["loaded"]
+    keys = ("loss_1", "loss_2", "pure_ratio_1", "pure_ratio_2", "param_hash")
+    equal = {k: len(got) == 1 and len(want) == 2 and got[0][k] == want[1][k] for k in keys}
+    load_err = max(abs(acc1["valid"] - got[0]["val_acc_1"]),
+                   abs(acc2["valid"] - got[0]["val_acc_2"]))
+    for e in want:
+        log(f"  12c full epoch {e['epoch']}: train {e['epoch_train_s']:.3f} s, loss "
+            f"{e['loss_1']:.6f}/{e['loss_2']:.6f}, val {e['val_acc_1']:.4f}/"
+            f"{e['val_acc_2']:.4f}, hash {e['param_hash']}")
+    log(f"  12c resumed epoch 1 against the uninterrupted TP run, bit-equal by key: {equal}; "
+        f"loaded in one process: validation {acc1['valid']:.4f}/{acc2['valid']:.4f} against "
+        f"{got[0]['val_acc_1']:.4f}/{got[0]['val_acc_2']:.4f}; each rank's peak "
+        f"{[round(r['runs'][0]['peak_bytes'] / 2**30, 2) for r in ranks]} GiB")
+    if not all(equal.values()):
+        raise RuntimeError(f"12c: the resumed TP epoch differs from the uninterrupted one: {equal}")
+    if not all(math.isfinite(e[k]) for e in want for k in ("loss_1", "loss_2")):
+        raise RuntimeError("12c: a non-finite loss")
+    if not load_err <= 1e-3:
+        raise RuntimeError(f"12c: the loaded nets' accuracies differ from the run's by {load_err}")
+    return dict(config=CORA_CONFIG, m=TP_M, epochs=want, resumed=got, equal=equal,
+                loaded=dict(acc1=acc1, acc2=acc2), load_acc_diff=load_err,
+                ranks=[[{k: v for k, v in run.items() if k != "result"} for run in r["runs"]]
+                       for r in ranks],
+                launches_all=[run["launches"] for r in ranks for run in r["runs"]]
+                + [loaded["launches"]])
+
+
 # ----------------------------------------------------------------- timing
 
 
@@ -2594,7 +2950,7 @@ def run(out: Path) -> int:
 
     log("[11] slice 7: data parallelism in the CTP, TE, H and CT epochs, use_bn and GAT")
     t11 = time.perf_counter()
-    epochs_nccl = run_epochs_nccl(out, dev)
+    epochs_nccl, one_small = run_epochs_nccl(out, dev)
     t11a = time.perf_counter()
     log(f"  [11a] {t11a - t11:.1f} s")
     log("  [11b] arxiv TE, full width, 2 ranks sharing the card over gloo")
@@ -2605,11 +2961,30 @@ def run(out: Path) -> int:
     dp_cut = run_dp_cut(out, ct_rep)
     log(f"  [11c] {time.perf_counter() - t11b:.1f} s; phase 11 {time.perf_counter() - t11:.1f} s")
 
+    log("[12] slice 8: tensor parallelism, ranks sharing the card over gloo")
+    t12 = time.perf_counter()
+    # 12a's six ranks run beside 12c (whose checks are bits, not times),
+    # and both before 12b, which is timed
+    log(f"  [12a] small-width steps at (D, M) = (1, {TP_M}) and (2, {TP_M}), started")
+    small_ranks = start_tp_small(out)
+    log(f"  [12c] cora, (1, {TP_M}), killed and resumed, loaded in one process")
+    tp_cora = run_tp_cora(out)
+    t12c = time.perf_counter()
+    log(f"  [12c] {t12c - t12:.1f} s")
+    tp_small = finish_tp_small(small_ranks, one_small)
+    t12a = time.perf_counter()
+    log(f"  [12a] {t12a - t12:.1f} s from its start")
+    log(f"  [12b] products, full width, (1, {TP_M}), {TP_STEPS} steps an epoch")
+    tp_prod = run_tp_products(out)
+    log(f"  [12b] {time.perf_counter() - t12a:.1f} s; phase 12 {time.perf_counter() - t12:.1f} s")
+
     kernels = []
     for row in rows:
         by_path = {"co": main_rep["launches"].get(row["F"], 0),
                    "bn": bn_rep["launches"].get(row["F"], 0),
-                   "dp": sum(r["launches"].get(str(row["F"]), 0) for r in dp_rep["ranks"])}
+                   "dp": sum(r["launches"].get(str(row["F"]), 0) for r in dp_rep["ranks"]),
+                   "tp": sum(c.get(row["F"], c.get(str(row["F"]), 0))
+                             for c in tp_prod["launches_all"])}
         k = spmm_row(row, sum(by_path.values()))
         k.update({f"launches_{p}": c for p, c in by_path.items()})
         kernels.append(k)
@@ -2634,7 +3009,13 @@ def run(out: Path) -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=block_sel["ms"], library_rows_ms=row_sel["ms"], cluster=r["cluster"],
             active_clusters=r["active_clusters"]))
-    kernels += [spmm_row(row, gat_rep["launches"].get(row["F"], 0)) for row in cora_rows]
+    for row in cora_rows:
+        by_path = {"gat": gat_rep["launches"].get(row["F"], 0),
+                   "tp": sum(c.get(row["F"], c.get(str(row["F"]), 0))
+                             for c in tp_cora["launches_all"])}
+        k = spmm_row(row, sum(by_path.values()))
+        k.update({f"launches_{p}": c for p, c in by_path.items()})
+        kernels.append(k)
     report = dict(nvidia_smi=smi, device=kind, count=count, build_s=build_s,
                   checks=cases, gather_checks=gather_cases, small_path=small,
                   small_ctp=small_ctp, small_rewire=small_rewire, small_te=small_te,
@@ -2644,6 +3025,7 @@ def run(out: Path) -> int:
                   bn_path=bn_rep, small_gat=small_gat, gat_path=gat_rep, cora_timing=cora_rows,
                   profile=profile_rep, dp_nccl=dp_nccl, dp_shared=dp_rep, fullgraph=fg_rep,
                   epochs_nccl=epochs_nccl, dp_te=dp_te, dp_cut=dp_cut,
+                  tp_small=tp_small, tp_products=tp_prod, tp_cora=tp_cora,
                   kernels=kernels,
                   script_s=time.perf_counter() - t_start)
     log(f"    whole script {report['script_s']:.1f} s")
@@ -2661,6 +3043,6 @@ if __name__ == "__main__":
                         help="directory for the run's logs, metrics and report")
     parser.add_argument("--dp-worker", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
-    if args.dp_worker is not None:  # one rank of phase 10b or 10c, started by run()
+    if args.dp_worker is not None:  # one rank of phase 10, 11 or 12, started by run()
         sys.exit(dp_worker(args.dp_worker))
     sys.exit(run(Path(args.out)))

@@ -17,8 +17,10 @@ Several ranks: ``torchrun --nproc_per_node N -m noise_gnn_tpu_torch.main
 -config ...``. When ``WORLD_SIZE`` > 1 and no process group exists yet,
 ``main`` joins one (``parallel/multihost.py``: NCCL, each rank on the card
 of its ``LOCAL_RANK``; gloo under ``device: 'cpu'``), as the JAX package
-sees every device without being asked; ``PipelineCO``/``PipelineS`` then
-train data-parallel, and the other pipelines refuse.
+sees every device without being asked; every pipeline then trains
+data-parallel, and with ``model_parallel: M`` > 1 tensor-parallel over M
+ranks of each data index (``torchrun --nproc_per_node 4`` at M = 2 is a
+(2, 2) grid).
 """
 
 from __future__ import annotations

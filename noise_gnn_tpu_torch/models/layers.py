@@ -15,6 +15,11 @@ GCNConv(normalize=False) with the self-loop the reference keeps
 Three forms per conv: edge-list (``sage_conv``), dense tree
 (``sage_conv_tree``: [N, K, F] neighbor blocks from the sampler) and
 pre-aggregated (``sage_conv_pre``: the exact-leaf path).
+
+Every weight product goes through :func:`tp_matmul`: the plain product for
+a whole weight, and under tensor parallelism (a ``mesh`` whose model axis
+has M > 1 ranks) Megatron's column-parallel product for a weight of which
+this rank holds a block of columns. Every form takes the ``mesh``.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 
 from ..ops.scatter import gather_scatter_max, gather_scatter_mean, gather_scatter_sum
 from ..ops.tree_agg import TreeTopo, tree_gather_scatter
-from ..parallel.mesh import sum_ranks
+from ..parallel.mesh import gather_cols, model_input, sum_ranks
 
 
 def glorot(gen: torch.Generator, shape: tuple[int, ...], device=None) -> torch.Tensor:
@@ -40,8 +45,40 @@ def linear_init(gen: torch.Generator, in_size: int, out_size: int, device=None) 
             "b": torch.zeros(out_size, dtype=torch.float32, device=device)}
 
 
-def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
-    out = x @ params["w"].to(x.dtype)
+def tp_matmul(pairs, out: int, mesh=None) -> torch.Tensor:
+    """``x1 @ w1 + x2 @ w2 + ...`` over ``pairs`` [(x, w), ...], [n, out].
+    Weights of ``out`` columns are whole: the plain products, summed in
+    order. Weights of out / M columns are this rank's blocks of
+    column-sharded weights (``parallel/mesh.py::param_sharding``), and the
+    product is Megatron's column-parallel layer: (a) the inputs pass
+    unchanged, and their gradients are summed over the model axis in
+    backward (``model_input``: each rank's ``dy_local @ w_local^T`` is a
+    share of them); (b) the local products, summed; (c) the column blocks
+    all-gathered over the model axis (``gather_cols``), whose backward
+    keeps this rank's columns. Everything after it is replicated over the
+    model axis, so a bias added after it gets the same whole gradient on
+    every model rank."""
+    dt = pairs[0][0].dtype
+    cols = pairs[0][1].shape[-1]
+    sharded = cols != out
+    if sharded:
+        m = 1 if mesh is None else mesh.model_size
+        if m == 1 or cols * m != out:
+            raise ValueError(f"a weight of {cols} columns for {out} outputs: not a column "
+                             f"block of a model axis of {m}")
+        pairs = list(zip(model_input(mesh, *(x for x, _ in pairs)), (w for _, w in pairs)))
+    acc = None
+    for x, w in pairs:
+        y = x @ w.to(dt)
+        acc = y if acc is None else acc + y
+    return gather_cols(mesh, acc) if sharded else acc
+
+
+def linear(params: dict, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``x @ w + b`` (with a bias: its width is the output's; without one,
+    the weight is whole)."""
+    out_size = params["b"].shape[0] if "b" in params else params["w"].shape[-1]
+    out = tp_matmul([(x, params["w"])], out_size, mesh)
     if "b" in params:
         out = out + params["b"].to(x.dtype)
     return out
@@ -70,21 +107,22 @@ def sage_conv_init(gen: torch.Generator, in_size: int, out_size: int, device=Non
     }
 
 
-def sage_conv_pre(params: dict, x_self: torch.Tensor, agg: torch.Tensor) -> torch.Tensor:
+def sage_conv_pre(params: dict, x_self: torch.Tensor, agg: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
     """SAGEConv from an already-aggregated neighbor feature:
     out = agg @ W_l + x_self @ W_r + b."""
-    dt = x_self.dtype
-    out = agg @ params["w_neigh"].to(dt) + x_self @ params["w_root"].to(dt)
-    return out + params["b"].to(dt)
+    out = tp_matmul([(agg, params["w_neigh"]), (x_self, params["w_root"])],
+                    params["b"].shape[0], mesh)
+    return out + params["b"].to(x_self.dtype)
 
 
 def sage_conv(params: dict, x: torch.Tensor, edge_index: torch.Tensor,
-              num_nodes: int | None = None, edge_mask=None, aggr: str = "mean"):
+              num_nodes: int | None = None, edge_mask=None, aggr: str = "mean", mesh=None):
     """Edge-list SAGEConv; edge_index [2, E] (messages src -> dst) or a
     TreeTopo."""
     n = num_nodes if num_nodes is not None else x.shape[0]
     agg = _neighbor_agg(x, edge_index, n, edge_mask, aggr)
-    return sage_conv_pre(params, x[:n], agg)
+    return sage_conv_pre(params, x[:n], agg, mesh)
 
 
 def _tree_agg(x_neigh, neigh_mask, aggr):
@@ -98,10 +136,10 @@ def _tree_agg(x_neigh, neigh_mask, aggr):
 
 
 def sage_conv_tree(params: dict, x_self: torch.Tensor, x_neigh: torch.Tensor,
-                   neigh_mask: torch.Tensor, aggr: str = "mean") -> torch.Tensor:
+                   neigh_mask: torch.Tensor, aggr: str = "mean", mesh=None) -> torch.Tensor:
     """Dense-tree SAGEConv: x_self [N, F], x_neigh [N, K, F], neigh_mask
     [N, K]; mean (or max) over the sampled-neighbor axis."""
-    return sage_conv_pre(params, x_self, _tree_agg(x_neigh, neigh_mask, aggr))
+    return sage_conv_pre(params, x_self, _tree_agg(x_neigh, neigh_mask, aggr), mesh)
 
 
 # ----------------------------------------------------------------- GCNConv
@@ -114,25 +152,26 @@ def gcn_conv_init(gen: torch.Generator, in_size: int, out_size: int, device=None
     }
 
 
-def gcn_conv_pre(params: dict, x_self: torch.Tensor, agg: torch.Tensor) -> torch.Tensor:
+def gcn_conv_pre(params: dict, x_self: torch.Tensor, agg: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
     """GCNConv(normalize=False) from a precomputed neighbor SUM:
     out = (agg + x_self) @ W + b."""
-    dt = x_self.dtype
-    return (agg + x_self) @ params["w"].to(dt) + params["b"].to(dt)
+    out = tp_matmul([(agg + x_self, params["w"])], params["b"].shape[0], mesh)
+    return out + params["b"].to(x_self.dtype)
 
 
 def gcn_conv(params: dict, x: torch.Tensor, edge_index: torch.Tensor,
-             num_nodes: int | None = None, edge_mask=None) -> torch.Tensor:
+             num_nodes: int | None = None, edge_mask=None, mesh=None) -> torch.Tensor:
     """GCNConv(normalize=False): neighbor-sum + self loop, then linear."""
     n = num_nodes if num_nodes is not None else x.shape[0]
     agg = _neighbor_agg(x, edge_index, n, edge_mask, "sum")
-    return gcn_conv_pre(params, x[:n], agg)
+    return gcn_conv_pre(params, x[:n], agg, mesh)
 
 
 def gcn_conv_tree(params: dict, x_self: torch.Tensor, x_neigh: torch.Tensor,
-                  neigh_mask: torch.Tensor) -> torch.Tensor:
+                  neigh_mask: torch.Tensor, mesh=None) -> torch.Tensor:
     m = neigh_mask.to(x_neigh.dtype)[..., None]
-    return gcn_conv_pre(params, x_self, (x_neigh * m).sum(dim=1))
+    return gcn_conv_pre(params, x_self, (x_neigh * m).sum(dim=1), mesh)
 
 
 # ---------------------------------------------------------------- dropout
@@ -146,7 +185,8 @@ def dropout(gen: torch.Generator | None, x: torch.Tensor, rate: float,
     the whole batch's draw, so the masks equal the one-process masks: one
     block of the rows (``parallel/mesh.py::Mesh.rand``), or, for a flat
     subgraph whose per-depth row counts here are ``flat``, the rank's
-    block of each depth (``Mesh.rand_flat``)."""
+    block of each depth (``Mesh.rand_flat``). The model axis draws nothing
+    of its own: x is whole over it."""
     if not train or rate <= 0.0 or gen is None:
         return x
     keep = 1.0 - rate

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from ..ops.scatter import fast_take
 from ..ops.tree_agg import TreeTopo
+from ..parallel.mesh import gather_cols
 from .layers import (
     batch_norm,
     batch_norm_init,
@@ -58,6 +59,7 @@ from .layers import (
     sage_conv_init,
     sage_conv_pre,
     sage_conv_tree,
+    tp_matmul,
 )
 
 MODULES = ("sage", "gcn", "sagePL", "sageH", "sageFC", "gcn_head", "gat")
@@ -149,22 +151,22 @@ def parameters(params: dict) -> list[torch.Tensor]:
     return leaves
 
 
-def _conv(spec, p, x, edge_index, num_nodes, edge_mask):
+def _conv(spec, p, x, edge_index, num_nodes, edge_mask, mesh=None):
     if spec.module == "gcn":
-        return gcn_conv(p, x, edge_index, num_nodes, edge_mask)
-    return sage_conv(p, x, edge_index, num_nodes, edge_mask, aggr=spec.aggr)
+        return gcn_conv(p, x, edge_index, num_nodes, edge_mask, mesh)
+    return sage_conv(p, x, edge_index, num_nodes, edge_mask, aggr=spec.aggr, mesh=mesh)
 
 
-def _conv_tree(spec, p, x_self, x_neigh, mask):
+def _conv_tree(spec, p, x_self, x_neigh, mask, mesh=None):
     if spec.module == "gcn":
-        return gcn_conv_tree(p, x_self, x_neigh, mask)
-    return sage_conv_tree(p, x_self, x_neigh, mask, aggr=spec.aggr)
+        return gcn_conv_tree(p, x_self, x_neigh, mask, mesh)
+    return sage_conv_tree(p, x_self, x_neigh, mask, aggr=spec.aggr, mesh=mesh)
 
 
-def _conv_pre(spec, p, x_self, agg):
+def _conv_pre(spec, p, x_self, agg, mesh=None):
     if spec.module == "gcn":
-        return gcn_conv_pre(p, x_self, agg)
-    return sage_conv_pre(p, x_self, agg)
+        return gcn_conv_pre(p, x_self, agg, mesh)
+    return sage_conv_pre(p, x_self, agg, mesh)
 
 
 def _l2_normalize_rows(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -182,7 +184,7 @@ def _stack_forward(spec, params, x, edge_index, n, edge_mask, train, gen, mesh=N
     if spec.use_bn:
         x = batch_norm(params["bn1"], x, mesh=mesh)
     for i, p in enumerate(params["convs"]):
-        x = _conv(spec, p, x, edge_index, n, edge_mask)
+        x = _conv(spec, p, x, edge_index, n, edge_mask, mesh)
         if i != spec.num_layers - 1:
             x = h = _relu_bn(spec, params, x, mesh)
             x = dropout(gen, x, spec.dropout, train, mesh, flat)
@@ -201,7 +203,8 @@ def _heads(spec: NetSpec, params: dict, z: torch.Tensor, h: torch.Tensor, mesh=N
         return {"logits": z.float(), "h": h.float()}
     if spec.module == "sageFC":
         return {"logits": z.float(),
-                "h": batch_norm(params["bnl"], linear(params["proj"], h.float()), mesh=mesh)}
+                "h": batch_norm(params["bnl"], linear(params["proj"], h.float(), mesh),
+                                mesh=mesh)}
     return {"logits": z.float()}
 
 
@@ -220,18 +223,23 @@ def apply(spec: NetSpec, params: dict, x: torch.Tensor, edge_index, *,
     With a ``mesh`` (data parallelism) ``edge_index`` is this rank's own
     flat subgraph, a TreeTopo: its dropout masks are its rows of the whole
     subgraph's draws, and batch norm takes its statistics over every rank's
-    rows (GAT, which has neither, takes the rank's own subgraph as it is)."""
+    rows (GAT, which has neither, takes the rank's own subgraph as it is).
+    With a model axis (tensor parallelism) the params are this rank's
+    (``models/convert.py::shard_params``): the products of sharded weights
+    run column-parallel (``layers.tp_matmul``), and sagePL's sharded
+    ``noise`` rows are gathered whole."""
     n = num_nodes if num_nodes is not None else x.shape[0]
     x = x.to(spec.dtype)
     if spec.module == "gat":
-        return {"logits": _gat_forward(spec, params, x, edge_index, n, edge_mask).float()}
+        return {"logits": _gat_forward(spec, params, x, edge_index, n, edge_mask, mesh).float()}
     if mesh is not None and not isinstance(edge_index, TreeTopo):
         raise ValueError("a flat forward under a mesh takes the rank's flat subgraph as a "
                          "TreeTopo")
     if spec.module == "gcn_head":
         # dropout of the input, then the first conv alone (reference gcn.py:19-23)
         x = dropout(gen, x, spec.dropout, train, mesh, None if mesh is None else edge_index.sizes)
-        return {"logits": sage_conv(params["convs"][0], x, edge_index, n, edge_mask).float()}
+        return {"logits": sage_conv(params["convs"][0], x, edge_index, n, edge_mask,
+                                    mesh=mesh).float()}
     if spec.module != "sagePL":
         z, h = _stack_forward(spec, params, x, edge_index, n, edge_mask, train, gen, mesh)
         return _heads(spec, params, z, h, mesh)
@@ -243,6 +251,8 @@ def apply(spec: NetSpec, params: dict, x: torch.Tensor, edge_index, *,
     if branch != "pure":
         noise = params["noise"]
         nr = fast_take(noise, n_id) if n_id is not None else noise[:x.shape[0]]
+        if nr.shape[1] != x.shape[1]:  # this rank's columns: the rows read, gathered whole
+            nr = gather_cols(mesh, nr)
         x_noisy = x + (_l2_normalize_rows(nr) * noise_rate).to(x.dtype)
         z, h = _stack_forward(spec, params, x_noisy, edge_index, n, edge_mask, train, gen, mesh)
         out.update(h_noisy=h.float(), y_noisy=torch.log_softmax(z.float(), dim=-1),
@@ -269,8 +279,9 @@ def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
     as in the JAX package. With a ``mesh`` (data parallelism) the tree is
     this rank's block of the batch's seeds, each dropout mask is that block
     of the whole batch's draw, and batch norm takes its statistics over
-    every rank's block of the depth array. Returns what :func:`apply`
-    returns, with the seeds as rows."""
+    every rank's block of the depth array. Under tensor parallelism the
+    products run as :func:`apply`'s do. Returns what :func:`apply` returns,
+    with the seeds as rows."""
     if spec.module == "sagePL":
         raise NotImplementedError("apply_tree for sagePL is not yet ported to "
                                   "noise_gnn_tpu_torch (the CTP and TE steps run apply "
@@ -291,7 +302,7 @@ def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
         n0, f = xs[0].shape[0], fanouts[0]
         return {"logits": sage_conv_tree(params["convs"][0], xs[0],
                                          xs[1].reshape(n0, f, xs[1].shape[-1]),
-                                         masks[1].reshape(n0, f)).float()}
+                                         masks[1].reshape(n0, f), mesh=mesh).float()}
     L = spec.num_layers
     want = L if exact else L + 1
     if len(xs) != want:
@@ -303,13 +314,13 @@ def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
         new_xs = []
         for d in range(L - i):
             if i == 0 and d == L - 1 and exact:
-                new_xs.append(_conv_pre(spec, p, xs[d], leaf_agg.to(xs[d].dtype)))
+                new_xs.append(_conv_pre(spec, p, xs[d], leaf_agg.to(xs[d].dtype), mesh))
                 continue
             n_d = xs[d].shape[0]
             f = fanouts[d]
             x_neigh = xs[d + 1].reshape(n_d, f, xs[d + 1].shape[-1])
             m_neigh = masks[d + 1].reshape(n_d, f)
-            new_xs.append(_conv_tree(spec, p, xs[d], x_neigh, m_neigh))
+            new_xs.append(_conv_tree(spec, p, xs[d], x_neigh, m_neigh, mesh))
         xs = new_xs
         if i != L - 1:
             xs = [_relu_bn(spec, params, x, mesh) for x in xs]
@@ -329,7 +340,7 @@ def _gat_init(gen: torch.Generator, spec: NetSpec, device=None) -> dict:
                        for fin, fout in spec.layer_sizes()]}
 
 
-def _gat_forward(spec, params, x, edge_index, num_nodes, edge_mask):
+def _gat_forward(spec, params, x, edge_index, num_nodes, edge_mask, mesh=None):
     """Masked dense attention over the [n, n] adjacency of the edge list
     (messages src -> dst): per layer, e = LeakyReLU_0.2(a_dst . Wh_i +
     a_src . Wh_j) on the edges and -1e9 off them, a row softmax re-masked to
@@ -337,7 +348,8 @@ def _gat_forward(spec, params, x, edge_index, num_nodes, edge_mask):
     0. Only the genuine edges of ``edge_mask`` enter the adjacency. (The JAX
     package routes masked edges to (0, 0) and scatters the mask there,
     duplicates and all; its result is defined, and equal to this, only where
-    node 0 has no genuine self-loop: ROADMAP queue 3.)"""
+    node 0 has no genuine self-loop: ROADMAP queue 3.) A column-sharded
+    ``w`` runs column-parallel (``layers.tp_matmul``; ``a`` is whole)."""
     n = num_nodes
     src, dst = edge_index[0].long(), edge_index[1].long()
     if edge_mask is not None:
@@ -348,7 +360,7 @@ def _gat_forward(spec, params, x, edge_index, num_nodes, edge_mask):
     adj = adj[:, :n]
     x = x[:n]
     for i, p in enumerate(params["layers"]):
-        wh = x @ p["w"].to(x.dtype)
+        wh = tp_matmul([(x, p["w"])], p["a"].shape[0] // 2, mesh)
         f = wh.shape[-1]
         a = p["a"][:, 0].to(x.dtype)
         e = F.leaky_relu((wh @ a[f:])[:, None] + (wh @ a[:f])[None, :], 0.2)

@@ -6,9 +6,10 @@ device, and says where data lives by what each rank holds:
 
 * ``multihost`` -- joining the process group (torchrun's environment or
                    explicit arguments; nccl for card ranks, gloo for CPU);
-* ``mesh``      -- the (data, model) grid over the ranks and the
-                   collectives (all-reduce, all-gather, all_to_all,
-                   point-to-point rounds);
+* ``mesh``      -- the (data, model) grid over the ranks, the TP rule and
+                   the collectives (all-reduce, all-gather, all_to_all,
+                   point-to-point rounds; the column gather and the input
+                   gradient sum of the model axis);
 * ``dp``        -- data-parallel co-teaching steps: each step's seeds split
                    over ``data``, parameters replicated, the gradients summed
                    in one all-reduce;
@@ -18,8 +19,11 @@ device, and says where data lives by what each rank holds:
                    pipelines' full-graph eval under DP);
 * ``fullbatch`` -- full-graph training through the halo exchange.
 
-Tensor parallelism (``model_parallel > 1``) is not ported (slice 8 of the
-port): it raises.
+With ``model_parallel`` M > 1 the ranks form a (world / M, M) grid: the
+data axis as above, and tensor parallelism over the model axis, where each
+rank holds a contiguous column block of the weights the JAX package's rule
+picks (``mesh.param_sharding``) and the products run column-parallel
+(``models/layers.py::tp_matmul``).
 
 ``mesh`` and ``multihost`` import only torch, so the model and op layers
 use the collectives; ``dp`` and ``partition``, which import the models and

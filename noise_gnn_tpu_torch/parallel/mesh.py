@@ -9,17 +9,28 @@ rank 0, and this rank's rows of a leading dimension.
 
 Axes:
   ``data``  -- seed-batch parallelism (DP) and node shards (halo, full graph);
-  ``model`` -- tensor parallelism over the hidden dimension (TP). TP is not
-               ported yet (slice 8 of the port): ``model_parallel > 1``
-               raises.
+  ``model`` -- tensor parallelism over the hidden dimension (TP): the
+               columns of every weight that :func:`param_sharding` picks
+               are split over the model ranks in contiguous blocks.
 
-The collectives are here, each a thin call of ``torch.distributed`` on the
-mesh's group: the all-reduce sum of one buffer (with :func:`sum_ranks`, its
+Rank r sits at data index ``r // M`` and model index ``r % M``, as JAX's
+``reshape(n // M, M)`` lays the devices out. A :class:`Mesh`'s ``rank``,
+``size`` and ``group`` are its data axis, so everything keyed on the data
+axis (the batch rows, the draws, the halo partition, batch norm's sums,
+the gradient all-reduce) reads the same at any M; ``model_rank``,
+``model_size`` and ``model_group`` are the model axis. The ranks of one
+data index hold the same generator state and draw what one data-parallel
+rank draws.
+
+The collectives are here, each a thin call of ``torch.distributed`` on one
+axis's group: the all-reduce sum of one buffer (with :func:`sum_ranks`, its
 autograd form, whose backward sums the gradient over the ranks), the
 all-gather into one tensor (with :func:`gather_rows`, its autograd form,
 whose backward keeps only this rank's slice, and :func:`gather_flat`, which
 also puts a flat subgraph's rows in the one-process order),
-``all_to_all_single`` and the point-to-point rounds.
+``all_to_all_single`` and the point-to-point rounds; and on the model
+axis, :func:`model_input` and :func:`gather_cols`, the two halves of
+Megatron's column-parallel product (``models/layers.py::tp_matmul``).
 
 A flat seed-first subgraph (``ops/sampler.py``) is laid out depth-major:
 the seeds, then every depth-1 row, and so on. A rank's own flat subgraph is
@@ -52,12 +63,31 @@ class Mesh:
 
     shape: dict  # {"data": D, "model": M}
     rank: int  # this process's index on the data axis
-    group: object | None  # process group of the data axis; None: one process, no group
+    group: object | None  # process group of the data axis; None where D == 1
     backend: str | None = None
+    model_rank: int = 0  # this process's index on the model axis
+    model_group: object | None = None  # process group of the model axis; None where M == 1
 
     @property
     def size(self) -> int:
         return int(self.shape["data"])
+
+    @property
+    def model_size(self) -> int:
+        return int(self.shape["model"])
+
+    def model_axis(self) -> "Mesh":
+        """The model axis as a mesh of its own (its ranks as the data
+        axis): what the model-axis collectives run on."""
+        return Mesh({"data": self.model_size, "model": 1}, self.model_rank, self.model_group,
+                    self.backend)
+
+    def model_only(self) -> "Mesh":
+        """This mesh with its data axis dropped: for a pass that every rank
+        of a data group runs whole, with the one-process draws, whose
+        column-sharded products still run over the model axis."""
+        return Mesh({"data": 1, "model": self.model_size}, 0, None, self.backend,
+                    self.model_rank, self.model_group)
 
     def rows(self, n: int) -> slice:
         """This rank's block of a leading dimension of ``n`` rows."""
@@ -107,31 +137,74 @@ def flat_order(sizes, world: int, device=None) -> torch.Tensor:
         base += s
     return torch.cat(idx)
 
+
+_GROUPS: list = []  # [(default group, M, data groups, model groups)], reused by make_mesh
+
+
+def _grid_groups(world: int, model: int):
+    """(data groups, model groups) of the (world / M, M) grid, each list
+    indexed by the other axis's index; a group of one rank is None. Every
+    rank creates every group of more than one rank, in one fixed order
+    (``new_group`` is collective), once per default group and M."""
+    for pg, m, data_groups, model_groups in _GROUPS:
+        if pg is dist.group.WORLD and m == model:
+            return data_groups, model_groups
+    d = world // model
+    data_groups = [dist.new_group([i * model + j for i in range(d)]) if d > 1 else None
+                   for j in range(model)]
+    model_groups = [dist.new_group([i * model + j for j in range(model)])
+                    for i in range(d)]
+    _GROUPS[:] = [g for g in _GROUPS if g[0] is dist.group.WORLD]
+    _GROUPS.append((dist.group.WORLD, model, data_groups, model_groups))
+    return data_groups, model_groups
+
+
 def make_mesh(n_devices: int | None = None, model_parallel: int = 1) -> Mesh:
     """The (data, model) grid over every rank of the default group (one
-    rank, and no group, in a single process)."""
-    if model_parallel > 1:
-        raise ValueError(
-            f"model_parallel={model_parallel}: tensor parallelism over a multi-device "
-            "mesh is slice 8 of the port (column-parallel layers with explicit gathers)")
+    rank, and no group, in a single process): D = world / M data indices
+    of M model ranks each. Raises where M does not divide the ranks."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"{world} ranks not divisible by model_parallel={model_parallel}")
     if not dist.is_initialized():
         if n_devices not in (None, 1):
             raise ValueError(f"n_devices={n_devices} without a process group")
         return Mesh({"data": 1, "model": 1}, 0, None)
-    world = dist.get_world_size()
     if n_devices not in (None, world):
         raise ValueError(f"n_devices={n_devices}: the mesh spans all {world} ranks of the "
                          "group (a sub-mesh would need every rank to build its group)")
-    return Mesh({"data": world, "model": 1}, dist.get_rank(), dist.group.WORLD,
-                dist.get_backend())
+    rank, backend = dist.get_rank(), dist.get_backend()
+    if model_parallel == 1:
+        return Mesh({"data": world, "model": 1}, rank, dist.group.WORLD, backend)
+    data_groups, model_groups = _grid_groups(world, model_parallel)
+    d, m = divmod(rank, model_parallel)
+    return Mesh({"data": world // model_parallel, "model": model_parallel}, d,
+                data_groups[m], backend, m, model_groups[d])
+
+
+def column_sharded(shape, model: int) -> bool:
+    """The JAX package's TP rule for one leaf of whole ``shape``: a 2-D
+    leaf whose columns divide by M shards them over ``model``; every
+    other leaf is replicated."""
+    return model > 1 and len(shape) == 2 and shape[1] % model == 0
+
+
+def column_block(mesh: Mesh, width: int) -> slice:
+    """This rank's contiguous block of ``width`` sharded columns."""
+    c = width // mesh.model_size
+    return slice(mesh.model_rank * c, (mesh.model_rank + 1) * c)
 
 
 def param_sharding(mesh: Mesh, params):
-    """TP rules of the JAX package: with ``model`` = 1 every leaf is
-    replicated, which is what the port does (``make_mesh`` refuses more)."""
-    if mesh.shape["model"] > 1:
-        raise ValueError("model_parallel > 1 is slice 8 of the port")
-    return params
+    """The TP rule of the JAX package (``parallel/mesh.py::param_sharding``)
+    over a nest of whole leaves: ``(None, "model")`` (columns split over
+    the model axis) for each leaf :func:`column_sharded` picks, ``()``
+    (replicated) for every other; all ``()`` at M = 1."""
+    if isinstance(params, dict):
+        return {k: param_sharding(mesh, v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(param_sharding(mesh, v) for v in params)
+    return (None, "model") if column_sharded(tuple(params.shape), mesh.model_size) else ()
 
 
 def replicated(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
@@ -297,3 +370,72 @@ def sum_ranks(mesh: Mesh | None, t: torch.Tensor) -> torch.Tensor:
     if mesh is None or mesh.group is None:
         return t
     return _SumRanks.apply(t, mesh)
+
+
+# ------------------------------------------------------------ model axis
+
+
+def all_gather_cols(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """[n, M * c]: every model rank's column block [n, c] of ``t``, in
+    model-rank order (the all-gather stacks the ranks along rows, [M * n,
+    c], and the blocks are put side by side)."""
+    if mesh.model_group is None:
+        return t
+    n, c = t.shape
+    stacked = all_gather(mesh.model_axis(), t)
+    return stacked.view(mesh.model_size, n, c).permute(1, 0, 2).reshape(n, mesh.model_size * c)
+
+
+class _GatherCols(torch.autograd.Function):
+    """The output half of a column-parallel product: the all-gather of the
+    column blocks, whose backward keeps this rank's columns of the
+    gradient (everything after it is replicated over the model axis, so
+    every model rank holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh, ctx.c = mesh, t.shape[1]
+        return all_gather_cols(mesh, t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        m, c = ctx.mesh.model_rank, ctx.c
+        return grad[:, m * c:(m + 1) * c].contiguous(), None
+
+
+def gather_cols(mesh: Mesh | None, t: torch.Tensor) -> torch.Tensor:
+    """Every model rank's columns of ``t`` [n, c], side by side,
+    differentiably (see :class:`_GatherCols`); ``t`` itself without a
+    model group."""
+    if mesh is None or mesh.model_group is None:
+        return t
+    return _GatherCols.apply(t, mesh)
+
+
+class _ModelInput(torch.autograd.Function):
+    """The input half of a column-parallel product: the identity forward,
+    and in backward one all-reduce over the model axis of the gradients of
+    every input (flattened into one f32 buffer). Each model rank's
+    ``dy_local @ w_local^T`` is one block's share of the input's gradient;
+    their sum is the whole of it."""
+
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = all_reduce_sum_(ctx.mesh.model_axis(),
+                               torch.cat([g.reshape(-1).float() for g in grads]))
+        parts = torch.split(flat, [g.numel() for g in grads])
+        return (None, *(p.view_as(g).to(g.dtype) for p, g in zip(parts, grads)))
+
+
+def model_input(mesh: Mesh | None, *xs: torch.Tensor) -> tuple:
+    """``xs`` unchanged, with their gradients summed over the model axis in
+    backward (see :class:`_ModelInput`); ``xs`` themselves without a model
+    group."""
+    if mesh is None or mesh.model_group is None:
+        return xs
+    return _ModelInput.apply(mesh, *xs)

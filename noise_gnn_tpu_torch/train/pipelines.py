@@ -22,9 +22,15 @@ aggregation (``parallel/fullbatch.py``). Each rank holds the graph, the
 features and its own exact-leaf table. Logs, metrics, checkpoints, saved
 models, plots, the noise matrix and the confusion matrix are written by
 rank 0 alone; every epoch record carries the params' hash, checked equal
-on every rank. ``model_parallel > 1`` (tensor parallelism, slice 8 of the
-port) raises. In one process ``full_graph: true`` logs and falls back to
-sampled-tree training, as the JAX package does on one device.
+on every rank. ``model_parallel: M`` > 1 lays the ranks out as a (world /
+M, M) grid (``parallel/mesh.py``): data parallelism over the first axis,
+and tensor parallelism over the second, where every state's leaves that
+the JAX package's rule picks (and their Adam moments) are split by
+columns (``train/steps.py::state_from_params``); the eval, the param hash
+and the checkpoints take the params gathered whole. M > 1 in one process,
+or an M that does not divide the ranks, raises. In one process
+``full_graph: true`` logs and falls back to sampled-tree training, as the
+JAX package does on one device (and so does a mesh with M > 1).
 
 Randomness: the host ``np.random.Generator`` (split batches, label noise)
 is consumed exactly as in the JAX package, so both draw the same epochs'
@@ -53,6 +59,7 @@ from ..graph.datasets import load_network
 from ..losses.coteaching import ct_loss
 from ..losses.schedules import forget_rate_schedule
 from ..models import nets
+from ..models.convert import gather_params
 from ..noise import flip_label, noise_or_not
 from ..ops.leaf_agg import fused_leaf_table, leaf_agg_eligible
 from ..parallel import fullbatch as FB
@@ -128,18 +135,21 @@ class BasePipeline:
         validate_config(config)
         world = multihost.world_size()
         mp = int(config.get("model_parallel", 1))
-        if mp > 1:
-            raise ValueError(
-                f"model_parallel={mp} needs tensor parallelism over a multi-device mesh, "
-                "which is slice 8 of the port")
         want_dp = config.get("data_parallel", "auto")
         if want_dp == "auto":
             want_dp = world > 1
         if world > 1 and not want_dp:
             raise ValueError(f"data_parallel: false at world size {world} would train "
                              f"{world} copies of one run; run one process instead")
+        if mp > 1 and world == 1:
+            # never a silent no-op: TP needs several ranks (JAX pipelines.py:139-146)
+            raise ValueError(f"model_parallel={mp} requested but no multi-device mesh is "
+                             f"available (ranks: {world}, data_parallel="
+                             f"{config.get('data_parallel')!r})")
+        if mp < 1 or world % mp:
+            raise ValueError(f"{world} ranks not divisible by model_parallel={mp}")
         # the (data, model) grid over the ranks (parallel/mesh.py), or None
-        self.mesh = make_mesh() if want_dp and world > 1 else None
+        self.mesh = make_mesh(model_parallel=mp) if want_dp and world > 1 else None
         self.config = config
         self.device = device_of(config)
         self.rng = np.random.default_rng(int(config.get("seed", 0)))
@@ -189,6 +199,9 @@ class BasePipeline:
             self.logger.info(f"   data-parallel over {self.mesh.size} ranks "
                              f"({multihost.process_info()['backend']}), batch_size "
                              f"{config['batch_size']}")
+            if self.mesh.model_size > 1:
+                self.logger.info(f"   tensor-parallel over {self.mesh.model_size} ranks "
+                                 f"(mesh {dict(self.mesh.shape)})")
         if multihost.rank() == 0:
             nmat_dir = os.path.join(config.get("out_dir", "out"), "nmat")
             os.makedirs(nmat_dir, exist_ok=True)
@@ -242,7 +255,7 @@ class BasePipeline:
 
     def _save_ckpt(self, path: str, states, run: int, epoch: int, attempt: int,
                    **meta) -> None:
-        save_checkpoint(path, tuple(S.state_tree(s) for s in states),
+        save_checkpoint(path, tuple(S.state_tree(s, self.mesh) for s in states),
                         {**self._ckpt_meta(run, epoch, attempt), **meta})
 
     def _try_resume(self, ckpt_path: str, specs, make_optimizer=None, extra=None):
@@ -262,7 +275,7 @@ class BasePipeline:
             self.gen.set_state(torch.tensor(list(bytes.fromhex(meta["gen_state"])),
                                             dtype=torch.uint8))
         opt = make_optimizer or self.make_optimizer
-        states = tuple(S.state_from_tree(t, opt) for t in bundle[:len(specs)])
+        states = tuple(S.state_from_tree(t, opt, self.mesh) for t in bundle[:len(specs)])
         run, epoch = int(meta["run"]), int(meta["epoch"]) + 1
         self.logger.info(f"   Resumed from {ckpt_path} at run {run} epoch {epoch}")
         return states + tuple(bundle[len(specs):]), run, epoch, meta
@@ -412,18 +425,22 @@ class BasePipeline:
     def _halo_eval_ok(self, spec) -> bool:
         # batch-stat BN needs statistics the halo stack does not carry, GAT
         # has no SpMM and aggr='max' no sum: under the mesh these evaluate
-        # replicated (every rank the whole graph), as in the JAX package
-        return (self.mesh is not None and spec.module in STACK_MODULES
-                and not spec.use_bn and spec.aggr != "max")
+        # replicated (every rank the whole graph), as in the JAX package; a
+        # data axis of one rank (all ranks tensor-parallel) runs the SpMM
+        # inference on each rank
+        return (self.mesh is not None and self.mesh.size > 1
+                and spec.module in STACK_MODULES and not spec.use_bn and spec.aggr != "max")
 
     def _fullgraph_on(self, spec) -> bool:
         """``full_graph: true`` trains on the EXACT every-edge aggregation,
         node-sharded with the halo exchange (``parallel/fullbatch.py``).
-        Needs a mesh and a plain sage/gcn stack; otherwise it logs and falls
-        back to sampled-tree training (JAX package pipelines.py:501-506)."""
+        Needs a mesh without tensor parallelism (its node shards take
+        whole params) and a plain sage/gcn stack; otherwise it logs and
+        falls back to sampled-tree training (JAX package
+        pipelines.py:495-506)."""
         want = bool(self.config.get("full_graph"))
-        ok = (self.mesh is not None and spec.module in ("sage", "gcn")
-              and not spec.use_bn and spec.aggr != "max")
+        ok = (self.mesh is not None and self.mesh.model_size == 1
+              and spec.module in ("sage", "gcn") and not spec.use_bn and spec.aggr != "max")
         if want and not ok:
             self.logger.info(
                 "   full_graph requested but needs a multi-device mesh "
@@ -438,28 +455,39 @@ class BasePipeline:
         seeds = torch.from_numpy(self.split_idx["train"]).long().to(self.device)
         return x_local, seeds, torch.ones(seeds.shape[0], dtype=torch.bool, device=self.device)
 
+    def _whole(self, params: dict) -> dict:
+        """Params gathered whole over the model axis (the JAX package's
+        ``_replicate_params``); as they are without tensor parallelism.
+        Every rank must call it."""
+        return gather_params(self.mesh, params)
+
     def make_eval(self, spec):
+        """Split accuracies of params (this rank's, or whole), on the
+        params gathered whole."""
+        w = self._whole
         if self._halo_eval_ok(spec):
             infer, _, xs = self._halo_ops(spec)
             accs = self._halo_accs()
-            return lambda params: accs(infer(params, xs))
+            return lambda params: accs(infer(w(params), xs))
         accs = split_accuracy_fn(self.split_idx, self._y, self.graph.num_nodes)
         logits, _ = self._logits_fns(spec)
 
         def evaluate(params):
-            return accs(logits(params))
+            return accs(logits(w(params)))
 
         return evaluate
 
     def make_eval_pair(self, spec):
         """Fused dual-model evaluation: one [N, 2H] SpMM per layer serves
-        both co-teaching nets (under a mesh, one halo exchange per layer)."""
+        both co-teaching nets (under a mesh, one halo exchange per layer);
+        on the params gathered whole."""
+        w = self._whole
         if self._halo_eval_ok(spec):
             _, infer_pair, xs = self._halo_ops(spec)
             accs = self._halo_accs()
 
             def evaluate2_halo(p1, p2):
-                l1, l2 = infer_pair(p1, p2, xs)
+                l1, l2 = infer_pair(w(p1), w(p2), xs)
                 return accs(l1), accs(l2)
 
             return evaluate2_halo
@@ -467,16 +495,17 @@ class BasePipeline:
         _, logits_pair = self._logits_fns(spec)
 
         def evaluate2(p1, p2):
-            l1, l2 = logits_pair(p1, p2)
+            l1, l2 = logits_pair(w(p1), w(p2))
             return accs(l1), accs(l2)
 
         return evaluate2
 
     def _replica_hash(self, *states) -> str:
-        """A hash of the states' params, checked equal on every rank of the
-        mesh (the replicas must stay equal: the same steps on the same
-        summed gradients)."""
-        return _equal_on_ranks([p for s in states for p in nets.parameters(s.params)],
+        """A hash of the states' params gathered whole, checked equal on
+        every rank of the mesh (the replicas must stay equal: the same
+        steps on the same summed gradients)."""
+        return _equal_on_ranks([p for s in states
+                                for p in nets.parameters(self._whole(s.params))],
                                "the ranks' params differ")
 
     def _hash_rec(self, *states) -> dict:
@@ -489,7 +518,7 @@ class BasePipeline:
                                  c["nbr_features"], c["nbr_classes"], c["nbr_nodes"])
 
     def init_state(self, spec) -> S.TrainState:
-        return S.init_state(self.gen, spec, self.make_optimizer, self.device)
+        return S.init_state(self.gen, spec, self.make_optimizer, self.device, self.mesh)
 
     @staticmethod
     def _fetch_metrics(agg: dict, nb: int) -> dict:
@@ -985,7 +1014,7 @@ class PipelineCT(BasePipeline):
 
         # warmup: co-teaching, the best-validation nets saved
         s1, s2 = self.init_state(spec), self.init_state(spec)
-        best_val, best_params = 0.0, _detached(s1.params)
+        best_val, best_params = 0.0, _detached(self._whole(s1.params))
         for epoch in range(warmup):
             seeds, masks = self.epoch_seed_matrix(train_idx, bs)
             nb = seeds.shape[0]
@@ -1007,10 +1036,10 @@ class PipelineCT(BasePipeline):
                              f"v1: {acc1['valid']:.3f} v2: {acc2['valid']:.3f}")
             if acc1["valid"] > best_val:
                 best_val = acc1["valid"]
-                best_params = _detached(s1.params)
+                best_params = _detached(self._whole(s1.params))
                 ckpt = f"{c['out_dir']}/models/{c['algo_type']}{self.output_name}"
-                save_checkpoint(ckpt + "_m1", s1.params, {"epoch": epoch})
-                save_checkpoint(ckpt + "_m2", s2.params, {"epoch": epoch})
+                save_checkpoint(ckpt + "_m1", best_params, {"epoch": epoch})
+                save_checkpoint(ckpt + "_m2", self._whole(s2.params), {"epoch": epoch})
                 self.logger.info("   Saved  model")
 
         clean_ids, noisy_ids = self._split(spec, s1.params, s2.params, warmup - 1)
@@ -1026,7 +1055,7 @@ class PipelineCT(BasePipeline):
             noisy_ids = np.concatenate([noisy_ids, clean_ids[extra]])
 
         # finetune of net 1's best-validation params on a fresh Adam at next_lr
-        s = S.state_from_params(best_params, ft_opt)
+        s = S.state_from_params(best_params, ft_opt, self.mesh)
         start_acc = evaluate(s.params)
         self.logger.info(f"   finetune start (warmup best-val params): "
                          f"val {start_acc['valid']:.3f} test {start_acc['test']:.3f}")
@@ -1095,7 +1124,7 @@ class PipelineCT(BasePipeline):
             self.metrics.write(event="finetune", epoch=epoch, **rec, val_acc=acc["valid"],
                                test_acc=acc["test"], epoch_train_s=t_train, steps=nb)
             if ckpt_every and (epoch + 1) % ckpt_every == 0:
-                save_checkpoint(ft_ckpt, (S.state_tree(s), ids),
+                save_checkpoint(ft_ckpt, (S.state_tree(s, self.mesh), ids),
                                 {**self._ckpt_meta(0, epoch), "best_val": best_val,
                                  "best_test": best_test})
             self.logger.info(
@@ -1120,7 +1149,7 @@ class PipelineCT(BasePipeline):
         on either side from one run to the next; here both nets' logits come
         from the pair inference, the same function through the SpMM, whose
         sums have a fixed order."""
-        l1, l2 = self._logits_fns(spec)[1](p1, p2)
+        l1, l2 = self._logits_fns(spec)[1](self._whole(p1), self._whole(p2))
         fr = float(self.rate_schedule[epoch])
         seeds, masks = self.epoch_seed_matrix(self.split_idx["train"],
                                               int(self.config["batch_size"]), shuffle=False)
@@ -1188,13 +1217,13 @@ class PipelineA(BasePipeline):
         if states is not None:
             s1, s2 = states
             best_val = float(meta.get("best_val", 0.0))
-            best_params = s1.params
+            best_params = self._whole(s1.params)
             if os.path.exists(best_path + ".npz"):
-                best_params, _ = load_checkpoint(best_path, s1.params)
+                best_params, _ = load_checkpoint(best_path, best_params)
         else:
             s1, s2 = self.init_state(spec), self.init_state(spec)
             best_val = 0.0
-            best_params = s1.params
+            best_params = self._whole(s1.params)
         # the loop trains s1.params in place: keep a copy, not an alias
         best_params = _detached(best_params)
         for epoch in range(start_epoch, int(c["max_epochs"])):
@@ -1203,8 +1232,9 @@ class PipelineA(BasePipeline):
             S.ct_epoch(spec, s1, s2, self.data_for(spec), seeds, masks, self.gen, fr,
                        self.fanouts, exact_leaf=exact, mesh=self.mesh)
             # selection-quality probes on the train set, batch by batch in order
-            logits = eval_fn(s1.params, self.data.x, edge_index)
-            logits2 = eval_fn(s2.params, self.data.x, edge_index)
+            w1 = self._whole(s1.params)
+            logits = eval_fn(w1, self.data.x, edge_index)
+            logits2 = eval_fn(self._whole(s2.params), self.data.x, edge_index)
             counts = torch.zeros(4, dtype=torch.int64, device=self.device)
             for b_seeds, b_mask in zip(*self.epoch_seed_matrix(train_idx, bs, shuffle=False)):
                 o1 = logits[b_seeds]
@@ -1214,11 +1244,11 @@ class PipelineA(BasePipeline):
                 counts += torch.stack([(right & out.keep_1).sum(), out.keep_1.sum(),
                                        (right & out.noisy_1).sum(), out.noisy_1.sum()])
             clean_ok, clean_n, noisy_ok, noisy_n = counts.tolist()
-            acc = evaluate(s1.params)
+            acc = evaluate(w1)
             if acc["valid"] > best_val:
                 best_val = acc["valid"]
-                best_params = _detached(s1.params)
-                save_checkpoint(best_path, s1.params, {"epoch": epoch, "val_acc": acc["valid"]})
+                best_params = _detached(w1)
+                save_checkpoint(best_path, w1, {"epoch": epoch, "val_acc": acc["valid"]})
             self.metrics.write(
                 event="epoch_analysis", epoch=epoch,
                 clean_sel_acc=clean_ok / max(clean_n, 1),

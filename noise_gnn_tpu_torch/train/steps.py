@@ -34,6 +34,18 @@ while the gradients that flow through gathered rows still come back
 through each rank's own slice. And the rewire sweeps only this rank's
 contiguous range of row blocks, the carries merged in rank order
 (``augment/rewire.py``). On one rank each step is the one-process step.
+
+Under tensor parallelism (the mesh's model axis, M > 1) every state is
+built whole, from the one-process draws, and sharded in one place,
+:func:`state_from_params`: each rank keeps its column block of every leaf
+the JAX package's rule picks (``models/convert.py::shard_params``), and
+Adam's moments are built on those blocks. The forwards run those products
+column-parallel (``models/layers.py::tp_matmul``), the ranks of one data
+index drawing alike; ``_step``'s all-reduce runs over the data axis only,
+and the passes run whole on every rank run over the model axis
+(:func:`_whole_pass`). :func:`state_tree` gathers a state whole and
+:func:`state_from_tree` shards a whole tree, so a checkpoint is the same
+at any M.
 """
 
 from __future__ import annotations
@@ -50,6 +62,7 @@ from ..losses.contrastive import (bce_expert_loss, bce_expert_loss2, discriminat
                                   discriminator_innerprod2)
 from ..losses.coteaching import backward_correction, codi_loss, cross_entropy, ct_loss
 from ..models import nets
+from ..models.convert import gather_leaves, gather_params, shard_leaf, shard_params, whole_widths
 from ..ops.sampler import sample_khop_tree
 from ..ops.scatter import fast_take
 from ..ops.tree_agg import TreeTopo
@@ -94,33 +107,45 @@ class TrainState(NamedTuple):
 
 
 def init_state(gen: torch.Generator, spec: nets.NetSpec,
-               make_optimizer: Callable, device=None) -> TrainState:
-    """Fresh Glorot params and their optimizer."""
+               make_optimizer: Callable, device=None, mesh=None) -> TrainState:
+    """Fresh Glorot params and their optimizer (this rank's blocks under
+    tensor parallelism: the whole params are drawn, then sharded)."""
     params = nets.init_params(gen, spec, device)
-    return state_from_params(params, make_optimizer)
+    return state_from_params(params, make_optimizer, mesh)
 
 
-def state_from_params(params: dict, make_optimizer: Callable) -> TrainState:
+def state_from_params(params: dict, make_optimizer: Callable, mesh=None) -> TrainState:
+    """A state of whole ``params`` and a fresh optimizer; with a ``mesh``
+    whose model axis has M > 1 ranks, of this rank's column blocks of the
+    leaves the TP rule picks (``models/convert.py::shard_params``): every
+    pipeline's states pass here, so one rule covers them all."""
+    params = shard_params(mesh, params)
     leaves = nets.parameters(params)
     for p in leaves:
         p.requires_grad_(True)
     return TrainState(params, make_optimizer(leaves))
 
 
-def state_tree(s: TrainState) -> dict:
+def state_tree(s: TrainState, mesh=None) -> dict:
     """The state as a nest of tensors for ``utils/checkpoint.py``: the
     params and, for each leaf of ``nets.parameters``, Adam's step and
     moments. Every leaf has them once the state has stepped (``_step``
     steps them all); a state that never stepped writes step 0 and zero
-    moments, which is what Adam starts from."""
+    moments, which is what Adam starts from. Under tensor parallelism the
+    params and the moments are gathered whole (two all-gathers over the
+    model axis: every rank calls it)."""
+    params = gather_params(mesh, s.params)
     if not s.opt.state:
-        return fresh_state_tree(s.params)
-    opt = []
-    for p in nets.parameters(s.params):
-        st = s.opt.state[p]
-        opt.append({"step": st["step"].detach().cpu().float().reshape(()),
-                    "exp_avg": st["exp_avg"], "exp_avg_sq": st["exp_avg_sq"]})
-    return {"params": s.params, "opt": opt}
+        return fresh_state_tree(params)
+    leaves = nets.parameters(s.params)
+    sts = [s.opt.state[p] for p in leaves]
+    widths = nets.parameters(whole_widths(s.params))
+    moments = gather_leaves(mesh, [st["exp_avg"] for st in sts] + [st["exp_avg_sq"] for st in sts],
+                            widths * 2)
+    n = len(leaves)
+    opt = [{"step": st["step"].detach().cpu().float().reshape(()),
+            "exp_avg": moments[i], "exp_avg_sq": moments[n + i]} for i, st in enumerate(sts)]
+    return {"params": params, "opt": opt}
 
 
 def fresh_state_tree(params: dict) -> dict:
@@ -131,12 +156,16 @@ def fresh_state_tree(params: dict) -> dict:
                     for p in nets.parameters(params)]}
 
 
-def state_from_tree(tree: dict, make_optimizer: Callable) -> TrainState:
+def state_from_tree(tree: dict, make_optimizer: Callable, mesh=None) -> TrainState:
     """The inverse of :func:`state_tree`: a state holding the tree's params
-    and optimizer moments."""
-    s = state_from_params(tree["params"], make_optimizer)
+    and optimizer moments (this rank's blocks of both under tensor
+    parallelism, whatever layout wrote the tree)."""
+    widths = nets.parameters(whole_widths(tree["params"]))
+    s = state_from_params(tree["params"], make_optimizer, mesh)
     sd = s.opt.state_dict()
-    sd["state"] = {i: dict(o) for i, o in enumerate(tree["opt"])}
+    sd["state"] = {i: {**o, "exp_avg": shard_leaf(mesh, o["exp_avg"], w),
+                       "exp_avg_sq": shard_leaf(mesh, o["exp_avg_sq"], w)}
+                   for i, (o, w) in enumerate(zip(tree["opt"], widths))}
     s.opt.load_state_dict(sd)
     return s
 
@@ -153,7 +182,10 @@ def _step(states, loss, mesh=None) -> None:
     count (and AdamW would not decay it). With a ``mesh`` the ranks'
     gradients, the idle leaves' zeros included, are summed in one
     all-reduce of one flat buffer before the steps, so that every rank
-    steps on the one-process gradient and the replicas stay equal."""
+    steps on the one-process gradient and the replicas stay equal. The sum
+    runs over the data axis alone: under tensor parallelism a sharded
+    leaf's gradient is its block's whole gradient already, and a
+    replicated leaf's is the same on every model rank."""
     for s in states:
         s.opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -262,7 +294,8 @@ def baseline_epoch(spec: nets.NetSpec, s: TrainState, data: GraphData,
             x_sub = _flat_subgraph(data, tb)[0]
             ei, e_mask = tb.flat_edges()
             o = nets.apply(spec, s.params, x_sub, ei, num_nodes=x_sub.shape[0],
-                           edge_mask=e_mask, train=True, gen=gen)["logits"][:tb.batch_size]
+                           edge_mask=e_mask, train=True, gen=gen,
+                           mesh=mesh)["logits"][:tb.batch_size]
         else:
             tb, xs, la = _sample_tree(gen, data, ls, lm, fanouts, exact_leaf, mesh)
             o = nets.apply_tree(spec, s.params, xs, list(tb.masks), tb.fanouts, train=True,
@@ -322,6 +355,14 @@ def _whole_subgraph(mesh, data: GraphData, sub):
     _, n_id, node_mask, topo = sub
     ids = gather_flat(mesh, torch.where(node_mask, n_id, -1), topo.sizes)
     return _subgraph(data, topo.batch_size * mesh.size, topo.fanouts, ids.clamp(min=0), ids >= 0)
+
+
+def _whole_pass(mesh):
+    """The mesh of a pass that every rank runs whole: its model axis alone
+    (None without one)."""
+    if mesh is None or mesh.model_size == 1:
+        return None
+    return mesh.model_only()
 
 
 def _counted_once(mesh, params):
@@ -423,19 +464,20 @@ def ctp_epoch(spec: nets.NetSpec, s1: TrainState, s2: TrainState, data: GraphDat
 def te_contrast_loss(spec: nets.NetSpec, p1: dict, p2: dict, x_sub, n_id, h1, h2, noisy_1,
                      noisy_2, pos_topo: TreeTopo, neg_topo: TreeTopo, gen: torch.Generator,
                      bsz: int, spl_noise_rate_pos: float = 0.1,
-                     spl_noise_rate_neg: float = 0.1):
+                     spl_noise_rate_neg: float = 0.1, mesh=None):
     """The contrastive terms (lc1, lc2) of a TE step given its rewired
     topologies (the ``use_contrast`` branch of JAX ``_te_step_math``): each
     net's pure pass over the positive graph and noisy pass over the
     negative graph, on row-shuffled features (``shuffle_pos``), scored
     against its own pure hidden ``h1``/``h2`` by inner products, with the
     BCE means over the seeds that net's selection rejected. The passes run
-    over the whole subgraph ``x_sub``."""
+    over the whole subgraph ``x_sub`` (``mesh``: the model axis alone, or
+    None)."""
     n_sub = x_sub.shape[0]
 
     def hidden(p, x, topo, rate, branch):
         return nets.apply(spec, p, x, topo, num_nodes=n_sub, train=True, gen=gen, n_id=n_id,
-                          noise_rate=rate, branch=branch)[f"h_{branch}"]
+                          noise_rate=rate, branch=branch, mesh=mesh)[f"h_{branch}"]
 
     hedge1 = hidden(p1, x_sub, pos_topo, spl_noise_rate_pos, "pure")
     hedge2 = hidden(p2, x_sub, pos_topo, spl_noise_rate_pos, "pure")
@@ -489,7 +531,7 @@ def te_step_loss(spec: nets.NetSpec, p1: dict, p2: dict, data: GraphData, seeds,
         lc1, lc2 = te_contrast_loss(spec, _counted_once(mesh, p1), _counted_once(mesh, p2),
                                     wx, wn_id, h1, h2, ct.noisy_1, ct.noisy_2, pos_topo,
                                     neg_topo, gen, wtopo.batch_size, spl_noise_rate_pos,
-                                    spl_noise_rate_neg)
+                                    spl_noise_rate_neg, _whole_pass(mesh))
         loss = loss + spl_cont_beta * (lc1 + lc2)
     return loss, (ct, o1, o2, lc1, lc2)
 
@@ -556,7 +598,8 @@ def h_step_loss(spec: nets.NetSpec, pseudo_spec: nets.NetSpec, p1: dict, p2: dic
         wx, _, _, wtopo = _whole_subgraph(mesh, data, sub)
         pos_topo, _ = topk_rewire_tree(wx, wtopo, rewire_rate, neg=False, mesh=mesh)
         pl = nets.apply(pseudo_spec, _counted_once(mesh, pp), wx, pos_topo,
-                        num_nodes=wx.shape[0], train=True, gen=gen)["logits"][:wtopo.batch_size]
+                        num_nodes=wx.shape[0], train=True, gen=gen,
+                        mesh=_whole_pass(mesh))["logits"][:wtopo.batch_size]
         pred_soft = torch.softmax(pl, dim=-1).detach()
 
         def soft_ce(o, noisy):

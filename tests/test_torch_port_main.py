@@ -78,8 +78,9 @@ def test_gcn_head_runs_on_cpu(tmp_path):
     # co-teaching trains on trees, and gat has none (its step fails in the
     # JAX package too): refused, not invented
     pytest.param({"module": "gat"}, NotImplementedError, "gat", id="over0"),
-    # the parallel package (data, halo and tensor parallelism) is not yet
-    # ported: a tensor-parallel degree above 1 is refused
+    # tensor parallelism needs several ranks: in one process a
+    # tensor-parallel degree above 1 is refused, as the JAX package refuses
+    # it without a multi-device mesh
     pytest.param({"model_parallel": 2}, ValueError, "multi-device", id="over1"),
 ])
 def test_not_yet_ported_raises(tmp_path, over, error, match):

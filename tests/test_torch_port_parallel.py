@@ -4,9 +4,10 @@ equal) at D = 2 and 4, ``shard_edges``, ``locality_order``; the
 layout-independent draws of the sampler and of dropout (each rank's block
 of a data-parallel draw equals that block of the one-process draw); a
 one-rank mesh's halo SpMM against the edge-list aggregation; and the
-refusals of several ranks by the pipelines that have no data-parallel form
-yet, and of ``model_parallel > 1``. The multi-rank runs are in
-``test_torch_port_dist.py``."""
+refusals of a ``model_parallel`` that does not divide the ranks, of
+``model_parallel > 1`` in one process and of ``data_parallel: false`` at
+several ranks. The multi-rank runs are in ``test_torch_port_dist.py``,
+``test_torch_port_dp_epochs.py`` and ``test_torch_port_tp.py``."""
 
 import shutil
 from pathlib import Path
@@ -161,18 +162,20 @@ def test_sorted_segments_chunks_match_one_call(monkeypatch):
     ("config_cora.yml", {"algo_type": "grid"}),
 ])
 def test_other_pipelines_refuse_several_ranks(tmp_path, monkeypatch, name, over):
-    """Every pipeline now trains data-parallel at world size > 1; what
-    each still refuses, before it loads anything, is ``model_parallel >
-    1`` (tensor parallelism), naming slice 8 of the port."""
+    """Every pipeline trains data- and tensor-parallel at world size > 1;
+    what each refuses, before it loads anything (no log is opened), is a
+    ``model_parallel`` that does not divide the ranks, as the JAX
+    package's mesh does."""
     from noise_gnn_tpu_torch.main import main
     from noise_gnn_tpu_torch.parallel import multihost
     from noise_gnn_tpu_torch.utils.config import load_config
 
     monkeypatch.setattr(multihost, "world_size", lambda: 2)
     c = load_config(str(ROOT / "configs" / name))
-    c.update(device="cpu", out_dir=str(tmp_path), model_parallel=2, **over)
-    with pytest.raises(ValueError, match="model_parallel=2.*slice 8"):
+    c.update(device="cpu", out_dir=str(tmp_path), model_parallel=3, **over)
+    with pytest.raises(ValueError, match="2 ranks not divisible by model_parallel=3"):
         main(c)
+    assert not (tmp_path / "logs").exists()
 
 
 def test_co_refuses_copies_and_tp(tmp_path, monkeypatch):
@@ -182,12 +185,12 @@ def test_co_refuses_copies_and_tp(tmp_path, monkeypatch):
 
     c = load_config(str(ROOT / "configs" / "config_cora.yml"))
     c.update(device="cpu", out_dir=str(tmp_path))
-    with pytest.raises(ValueError, match="model_parallel.*multi-device.*slice 8"):
+    with pytest.raises(ValueError, match="model_parallel=2 requested but no multi-device"):
         main(dict(c, model_parallel=2))
     monkeypatch.setattr(multihost, "world_size", lambda: 2)
     with pytest.raises(ValueError, match="copies"):
         main(dict(c, data_parallel=False))
-    with pytest.raises(ValueError, match="model_parallel"):
+    with pytest.raises(ValueError, match="not divisible by model_parallel=2"):
         make_mesh(model_parallel=2)
 
 
