@@ -272,6 +272,21 @@ when every phase passed):
    then the checkpoint (whole, the one format) loaded in one process with
    ``do_train: false``: validation within 1e-3 of the resumed run's.
 
+13. Slice 9, the measuring tools (``noise_gnn_tpu_torch/tools/``), each
+   called as a user would (``run``), its JSON line logged as ``[13] <tool>
+   {...}``: ``bench_spmm`` at its full default shape (``bench.py``'s graph,
+   1,000,000 nodes, 32,000,000 edges, F = 256 bf16; 3 timed calls a leg),
+   then the kernel on that graph against its plain version at F = 256 and
+   at the dual 2F = 512 (phase 2's tolerance, two calls bit-equal);
+   ``bench_trainstep`` and ``profile_step`` at their default shapes (1.2 M
+   nodes of degree 26, 3 x 256 SAGE, batch 512, fanouts [15, 10, 5], bf16)
+   cut to ``TOOL_STEPS`` steps a run, 2 timed runs; ``bench_scaling --world
+   1 2``, the two ranks sharing the card over gloo (which must not be
+   reported as a scaling number); and one ``evidence --one`` row,
+   ``config_cora.yml`` co-teaching vs CE cut to 1 run of 3 epochs, whose
+   accuracies must be finite. Each tool's seconds are logged; no launch of
+   this phase enters the kernels line.
+
 Then it prints one ``{"kernels": [...]}`` line (errors from the full-size
 checks, launches from the main paths; the products rows count phase 3's,
 9b's, 10b's ranks' and 12b's ranks' and one-process runs, the arxiv rows
@@ -315,7 +330,8 @@ from noise_gnn_tpu_torch.ops.tree_agg import TreeTopo
 from noise_gnn_tpu_torch.parallel import make_dp_ct_step, make_mesh, multihost
 from noise_gnn_tpu_torch.parallel.halo import (build_halo_partition, make_halo_inference,
                                                place_partition, shard_features)
-from noise_gnn_tpu_torch.tools import gather_probe
+from noise_gnn_tpu_torch.tools import (bench_scaling, bench_spmm, bench_trainstep, evidence,
+                                       gather_probe, profile_step)
 from noise_gnn_tpu_torch.train import pipelines, steps
 from noise_gnn_tpu_torch.train.pipelines import BasePipeline, PipelineCO, PipelineS
 from noise_gnn_tpu_torch.utils.config import load_config
@@ -2767,6 +2783,97 @@ def run_tp_cora(out: Path) -> dict:
 # ----------------------------------------------------------------- timing
 
 
+# ------------------------------------------------------------------ phase 13
+
+TOOL_STEPS = 10  # steps a run of bench_trainstep and profile_step in phase 13
+
+
+def _tool_line(name: str, res: dict) -> None:
+    log(f"  [13] {name} {json.dumps(res)}")
+
+
+def check_bench_shape(dev, res: dict) -> list[dict]:
+    """The kernel against its plain version on ``bench_spmm``'s graph at its
+    F and the dual 2F (bf16 in and out, mean), with phase 2's tolerance;
+    two calls bit-equal."""
+    n, e, f = res["nodes"], res["edges"], res["feat"]
+    indptr_np, src_np, _ = bench_spmm.make_graph(n, e)
+    indptr, src = torch.from_numpy(indptr_np).to(dev), torch.from_numpy(src_np).to(dev)
+    op = spmm.Spmm(indptr, src)
+    rtol = sum_rtol(indptr)
+    cases = []
+    for width, seed in ((f, 0), (2 * f, 1)):
+        x = bench_spmm.features(n, width, torch.bfloat16, dev, seed)
+        got = op(x)
+        case = dict(graph=f"bench_spmm (N={n}, E={e})", F=width, x="bfloat16", out="bfloat16",
+                    mean=True)
+        case.update(compare(got, spmm.spmm_reference(indptr, src, x, True, torch.float32),
+                            spmm.spmm_reference(indptr, src, x.abs(), True, torch.float32),
+                            rtol))
+        case.update(repeat_equal=bool(torch.equal(got, op(x))))
+        case["ok"] = case["ok"] and case["repeat_equal"]
+        log_case(case)
+        cases.append(case)
+        del x, got
+    del op, indptr, src
+    torch.cuda.empty_cache()
+    return cases
+
+
+def run_tools(out: Path, dev) -> dict:
+    """Phase 13: the port's measuring tools on the card (see the module
+    doc). Each tool's JSON line is logged; any failure raises."""
+    rep = {}
+    t = time.perf_counter()
+    rep["bench_spmm"] = bench_spmm.run(iters=3)
+    _tool_line("bench_spmm", rep["bench_spmm"])
+    rep["bench_spmm_checks"] = check_bench_shape(dev, rep["bench_spmm"])
+    if not all(c["ok"] for c in rep["bench_spmm_checks"]):
+        raise RuntimeError(f"kernel out of tolerance at bench_spmm's shape: "
+                           f"{rep['bench_spmm_checks']}")
+    rep["seconds"] = {"bench_spmm": time.perf_counter() - t}
+
+    t = time.perf_counter()
+    rep["bench_trainstep"] = bench_trainstep.run(steps=TOOL_STEPS, reps=2)
+    _tool_line("bench_trainstep", rep["bench_trainstep"])
+    rep["seconds"]["bench_trainstep"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rep["profile_step"] = profile_step.run(steps=TOOL_STEPS, reps=2)
+    _tool_line("profile_step", rep["profile_step"])
+    rep["seconds"]["profile_step"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    rep["bench_scaling"] = bench_scaling.run(world=(1, 2))
+    _tool_line("bench_scaling", rep["bench_scaling"])
+    rep["seconds"]["bench_scaling"] = time.perf_counter() - t
+    if rep["bench_scaling"]["scaling_number"]:
+        raise RuntimeError("two ranks sharing one card were reported as a scaling number")
+
+    t = time.perf_counter()
+    label, base, ov = evidence.MATRIX[0]
+    ov = dict(ov, num_runs=1, max_epochs=3, out_dir=str((out / "evidence").resolve()))
+    proc = subprocess.run(
+        [sys.executable, "-m", "noise_gnn_tpu_torch.tools.evidence", "--one",
+         json.dumps({"base": base, "ov": ov})], capture_output=True, text=True, timeout=600,
+        cwd=str(Path(__file__).resolve().parent))
+    if proc.returncode != 0:
+        raise RuntimeError(f"evidence --one exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    row = json.loads(proc.stdout.strip().splitlines()[-1])
+    rep["evidence_one"] = {k: v for k, v in row.items() if not k.startswith("_")}
+    _tool_line(f"evidence --one ({label}, 1 run, 3 epochs)", rep["evidence_one"])
+    rep["seconds"]["evidence_one"] = time.perf_counter() - t
+    accs = [row[b]["mean"] for b in ("nalgo", "baseline")]
+    if not (all(math.isfinite(a) for a in accs) and "_curves" in row):
+        raise RuntimeError(f"evidence --one: accuracies {accs}, keys {sorted(row)}")
+
+    for k in ("bench_spmm", "bench_trainstep", "profile_step", "bench_scaling"):
+        if "card" not in rep[k] or "power_limit" not in rep[k]:
+            raise RuntimeError(f"{k}'s line names no card")
+    log("  [13] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in rep["seconds"].items()))
+    return rep
+
+
 def time_shapes(dev, config: str, shapes, dtype: torch.dtype) -> list[dict]:
     """Check and time the kernel at a main path's own shapes on its full
     graph: its output (mean, in ``dtype`` in and out, as the path calls it)
@@ -2978,6 +3085,12 @@ def run(out: Path) -> int:
     tp_prod = run_tp_products(out)
     log(f"  [12b] {time.perf_counter() - t12a:.1f} s; phase 12 {time.perf_counter() - t12:.1f} s")
 
+    log("[13] the measuring tools: bench_spmm, bench_trainstep, profile_step, bench_scaling, "
+        "evidence --one")
+    t13 = time.perf_counter()
+    tools_rep = run_tools(out, dev)
+    log(f"  [13] phase 13 {time.perf_counter() - t13:.1f} s")
+
     kernels = []
     for row in rows:
         by_path = {"co": main_rep["launches"].get(row["F"], 0),
@@ -3026,7 +3139,7 @@ def run(out: Path) -> int:
                   profile=profile_rep, dp_nccl=dp_nccl, dp_shared=dp_rep, fullgraph=fg_rep,
                   epochs_nccl=epochs_nccl, dp_te=dp_te, dp_cut=dp_cut,
                   tp_small=tp_small, tp_products=tp_prod, tp_cora=tp_cora,
-                  kernels=kernels,
+                  tools=tools_rep, kernels=kernels,
                   script_s=time.perf_counter() - t_start)
     log(f"    whole script {report['script_s']:.1f} s")
     (out / "report.json").write_text(json.dumps(report, indent=1, default=str))

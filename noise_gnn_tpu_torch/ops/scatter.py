@@ -116,13 +116,21 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 
 
+def edge_chunk(num_edges: int, width: int) -> int:
+    """Edges a gather-scatter takes at once: all of them, unless their
+    [E, F] messages would pass ~128 M elements (then ``_EDGE_CHUNK``)."""
+    if num_edges * width > _CHUNK_THRESHOLD_ELEMS:
+        return _EDGE_CHUNK
+    return max(num_edges, 1)
+
+
 def _scatter_sum_f32(x, src, dst, num_nodes):
     """[num_nodes + 1, F] fp32 sums (last row = dead segment), chunked over
     edges when the message matrix would be large."""
     acc = torch.zeros((num_nodes + 1, x.shape[1]), dtype=_acc_dtype(x.dtype),
                       device=x.device)
     e = src.shape[0]
-    chunk = _EDGE_CHUNK if e * x.shape[1] > _CHUNK_THRESHOLD_ELEMS else max(e, 1)
+    chunk = edge_chunk(e, x.shape[1])
     for lo in range(0, e, chunk):
         acc.index_add_(0, dst[lo:lo + chunk], x[src[lo:lo + chunk]].to(acc.dtype))
     return acc
@@ -152,7 +160,7 @@ def gather_scatter_max(x, edge_index, num_nodes: int, edge_mask=None) -> torch.T
     acc = torch.full((num_nodes + 1, x.shape[1]), float("-inf"), dtype=x.dtype,
                      device=x.device)
     e = src.shape[0]
-    chunk = _EDGE_CHUNK if e * x.shape[1] > _CHUNK_THRESHOLD_ELEMS else max(e, 1)
+    chunk = edge_chunk(e, x.shape[1])
     for lo in range(0, e, chunk):
         d = dst[lo:lo + chunk][:, None].expand(-1, x.shape[1])
         acc.scatter_reduce_(0, d, x[src[lo:lo + chunk]], reduce="amax")

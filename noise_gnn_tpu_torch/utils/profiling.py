@@ -1,6 +1,6 @@
 """Tracing and throughput observability, and the CUDA-event timers and
-published H100 rates that the card's scripts (``tools/gather_probe.py``,
-``chip_smoke.py``) time and bound kernels with.
+published H100 rates that the card's scripts (``chip_smoke.py`` and the
+tools under ``tools/``) time and bound kernels with.
 
 Port of ``noise_gnn_tpu/utils/profiling.py``:
 
@@ -123,6 +123,35 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def call_times(fn, device: torch.device, iters: int, warm: int = 1) -> dict[str, list[float]]:
+    """Each of ``iters`` calls of ``fn`` after ``warm``, timed on its own:
+    ``ms`` by CUDA events around the call on a card (``None`` on the CPU)
+    and ``wall_ms`` by the host's clock from the call to the end of its
+    device work. The measuring tools (``tools/``) take medians or minima
+    of these."""
+    for _ in range(warm):
+        fn()
+    cuda = device.type == "cuda"
+    times: dict[str, list] = {"ms": [], "wall_ms": []}
+    for _ in range(iters):
+        if cuda:
+            torch.cuda.synchronize(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times["ms"].append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times["ms"].append(None)
+        times["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+    return times
 
 
 def time_turns(fns: dict, turns: int, reps: int, warm: int = 2) -> dict[str, list[float]]:

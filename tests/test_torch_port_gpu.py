@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: the CUDA SpMM and the
 gather-ring kernel against their plain versions, the main path on a small
-graph, and the rewire's top-k and the sorted segment sum against the CPU.
+graph, the rewire's top-k and the sorted segment sum against the CPU, and
+``tools/bench_spmm.py``'s legs at a small shape.
 They skip where no card is visible. This file imports neither JAX nor the JAX package, so on a card
 without JAX it runs without the repo's conftest:
 
@@ -260,3 +261,25 @@ def test_sorted_segment_sum_is_fixed_order(cuda):
         (fast_take(x, ids.to(cuda)) * data.to(cuda)).sum().backward()
         grads.append(x.grad)
     assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0].cpu(), want[:300])
+
+
+@pytest.mark.gpu
+def test_bench_spmm_small_on_cuda(cuda):
+    """``tools/bench_spmm.py`` on the card at a small shape: every number
+    of its JSON line finite, the kernel launched at F and 2F; then the
+    kernel on the tool's graph (13% isolated rows) against its plain
+    version (see ``_check_launches``)."""
+    from noise_gnn_tpu_torch.tools import bench_spmm
+
+    n, e, f = 50_000, 100_000, 64
+    spmm.launch_counts.clear()
+    res = bench_spmm.run(nodes=n, edges=e, feat=f, iters=2)
+    nums = [v for v in res.values() if isinstance(v, float)] + list(res["ms"].values())
+    assert len(nums) >= 15 and all(np.isfinite(v) and v > 0 for v in nums)
+    assert res["card"] == torch.cuda.get_device_name(0) and res["power_limit"]
+    assert spmm.launch_counts[f] > 0 and spmm.launch_counts[2 * f] > 0
+    indptr, src, _ = bench_spmm.make_graph(n, e)
+    csr = CSRGraph(torch.from_numpy(indptr).to(cuda), torch.from_numpy(src).to(cuda), n)
+    op = spmm.Spmm.from_csr(csr)
+    for x_dtype in (torch.float32, torch.bfloat16):
+        _check_launches(op, csr, bench_spmm.features(n, f, x_dtype, cuda), f)
