@@ -71,7 +71,8 @@ when every phase passed):
    [15, 10, 5], bf16, exact leaf; the config's own train_frac 2, ~1292 steps
    per epoch: at train_frac 40, 65 steps per epoch, two epochs leave both
    nets at chance, as the JAX package's own products curves stay at chance
-   through their first ~1300 steps). It logs the setup's CSR build seconds
+   through their first ~1300 steps; a cut to 860 steps an epoch left the
+   baseline at chance too). It logs the setup's CSR build seconds
    (the native counting sort). The SpMM launch counts are reset just
    before and read just after: the leaf table (F = 100), the paired
    co-teaching eval (F = 512) and the baseline eval (F = 256) must all have
@@ -175,7 +176,9 @@ when every phase passed):
    within 4x the CPU's own bf16 distance plus 1e-3); then ``main`` on
    ``configs/config_products.yml`` with ``use_bn: true`` (num_runs 1,
    max_epochs 2, reinit_retries 0; exact leaf off under BN, so the tree
-   carries every hop): losses finite, validation above 1/47 for the better
+   carries every hop; the train split cut to ``BN_STEPS`` batches an
+   epoch in the phase's own ``data_dir``, beside a link to phase 3's graph
+   cache): losses finite, validation above 1/47 for the better
    co-teaching net and the baseline net, and the SpMM launched exactly at
    the BN eval's shapes (pair 200, 512, 512 and single 100, 256, 256 bf16,
    each epoch). (c) GAT: one forward at config_cora.yml's widths on a
@@ -208,7 +211,9 @@ when every phase passed):
    ranks' results equal, each epoch's params hash equal across the ranks
    (the pipeline checks it), validation above 1/47 for the better
    co-teaching net and the baseline and within 0.02 of the one-process
-   run's, each rank's leaf table built by the SpMM; then one f32 DP
+   run's, each rank's leaf table built by the SpMM (the ranks start
+   first, and the one-process run and 10c's ranks run beside them: the
+   checks are results, not times); then one f32 DP
    co-teaching step at the config's widths and fanouts (no exact leaf,
    dropout on) equal on both ranks bit for bit and within 1e-4 of the
    one-process step. It logs the step times, the halo pack's seconds, the
@@ -240,10 +245,13 @@ when every phase passed):
    the rows, so near-ties may go the other way: counted, not hidden) and
    the params' distance. Validation within 0.02 of phase 7's. (c)
    ``configs/config_ctp.yml`` and ``configs/config_h.yml`` (2 epochs, the
-   train split cut to 16 batches) on two ranks, each beside the same run
-   in this process, and ``configs/config_contrast.yml`` (phase 8's
-   configuration: warmup 2, the split, finetune 2) on two ranks beside
-   phase 8's one-process run: the same records, the views' hash, and the
+   train split cut to ``DP_CUT_STEPS`` batches) on two ranks, each beside
+   the same run in this process, and ``configs/config_contrast.yml`` (phase
+   8's configuration: warmup 2, the split, finetune 2) on two ranks beside
+   phase 8's one-process run; the CT ranks start first and run beside the
+   CTP and H runs (their host edge augmentation takes most of their time;
+   11c's checks are results, not times, so its ms a step are not alone on
+   the card): the same records, the views' hash, and the
    split's sizes, which must equal one process's; best test accuracy
    within 0.02 of one process's.
 
@@ -284,12 +292,30 @@ when every phase passed):
    1 2``, the two ranks sharing the card over gloo (which must not be
    reported as a scaling number); and one ``evidence --one`` row,
    ``config_cora.yml`` co-teaching vs CE cut to 1 run of 3 epochs, whose
-   accuracies must be finite. Each tool's seconds are logged; no launch of
-   this phase enters the kernels line.
+   accuracies must be finite (a process of its own). Each tool's seconds
+   are logged; no launch of this phase enters the kernels line.
+14. Slice 10, the probe tools (``noise_gnn_tpu_torch/tools/``), each
+   called as a user would (``run``; the calibration's ``calibrate``), its
+   JSON line logged as ``[14] <tool> {...}``: ``exp_flat_agg`` at B = 128,
+   fanouts (10, 5), F = 8710 f32 (the edge-list mean and the tree
+   aggregation within 1e-4 relative of each other, every time finite);
+   ``exp_ctp_step --old`` on cora at scale 10, batch 128, 2 timed calls a
+   stage (the two legs' forward losses within 1e-4 relative, every number
+   finite); one ``calibrate_synthetic`` probe, pubmed at scale 1 at the
+   registry's ``feature_noise``, 80 epochs (clean accuracy within
+   ``CALIBRATION_BAND`` = 0.03 of ``TARGETS['pubmed']`` = 0.77); and
+   ``probe_hard_draw`` for 1 epoch of ``PROBE_STEPS`` batches
+   (``config_products.yml``, the train split cut in the phase's own
+   ``data_dir`` beside a link to phase 3's graph cache, reinit_retries 0),
+   its best finite and in (0, 1], its SpMM launches counted: its leaf table
+   (F = 100) and pair eval (F = 512) must go through the kernel. Each
+   tool's seconds are logged; the hard-draw run's launches enter the
+   products rows of the kernels line.
 
 Then it prints one ``{"kernels": [...]}`` line (errors from the full-size
 checks, launches from the main paths; the products rows count phase 3's,
-9b's, 10b's ranks' and 12b's ranks' and one-process runs, the arxiv rows
+9b's, 10b's ranks', 12b's ranks' and one-process runs and 14's hard-draw
+run, the arxiv rows
 the CTP, TE, H and CT runs' and phase 11's ranks' and one-process runs',
 the cora rows 9c's and 12c's ranks' and loaded runs; each path's also on
 its own), the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
@@ -330,8 +356,10 @@ from noise_gnn_tpu_torch.ops.tree_agg import TreeTopo
 from noise_gnn_tpu_torch.parallel import make_dp_ct_step, make_mesh, multihost
 from noise_gnn_tpu_torch.parallel.halo import (build_halo_partition, make_halo_inference,
                                                place_partition, shard_features)
-from noise_gnn_tpu_torch.tools import (bench_scaling, bench_spmm, bench_trainstep, evidence,
-                                       gather_probe, profile_step)
+from noise_gnn_tpu_torch.tools import (bench_scaling, bench_spmm, bench_trainstep,
+                                       calibrate_synthetic, evidence, exp_ctp_step,
+                                       exp_flat_agg, gather_probe, probe_hard_draw,
+                                       profile_step)
 from noise_gnn_tpu_torch.train import pipelines, steps
 from noise_gnn_tpu_torch.train.pipelines import BasePipeline, PipelineCO, PipelineS
 from noise_gnn_tpu_torch.utils.config import load_config
@@ -346,6 +374,8 @@ CT_CONFIG = "configs/config_contrast.yml"
 CORA_CONFIG = "configs/config_cora.yml"
 FG_CONFIG = "configs/config_arxiv10.yml"
 TE_STEPS = 64  # train batches an epoch in phase 7
+DP_CUT_STEPS = 8  # train batches an epoch of phase 11c's CTP and H runs
+BN_STEPS = 256  # train batches an epoch in phase 9b
 DP_DEVICE = "cuda:0"  # the card the ranks of phases 10b and 10c share
 SOURCE = "noise_gnn_tpu_torch/csrc/spmm.cu"
 REPLACES = "noise_gnn_tpu/ops/pallas_spmm.py:147"
@@ -1548,8 +1578,10 @@ def run_bn_path(out: Path) -> dict:
     """9b: co-teaching and the baseline under use_bn through ``main`` at the
     products widths; the SpMM counts by F reset before and read after."""
     cfg = load_config(CONFIG)
-    cfg.update(use_bn=True, num_runs=1, max_epochs=2, reinit_retries=0,
-               out_dir=str(out / "bn"))
+    cfg.update(use_bn=True, num_runs=1, max_epochs=2, reinit_retries=0, load_index=True,
+               out_dir=str(out / "bn"), data_dir=str((out / "bn" / "data").resolve()))
+    _link_products_cache(Path(cfg["data_dir"]))
+    cut = _cut_split(cfg, BN_STEPS)
     seen: list = []
     ct_epoch, baseline_epoch = steps.ct_epoch, steps.baseline_epoch
     steps.ct_epoch = _counting_steps(ct_epoch, seen)
@@ -1569,7 +1601,8 @@ def run_bn_path(out: Path) -> dict:
         log(f"  BN baseline epoch {e['epoch']}: train {e['epoch_train_s']:.3f} s "
             f"({e['epoch_train_s'] / nsteps * 1e3:.1f} ms a step), eval {e['epoch_eval_s']:.3f} "
             f"s, loss {e['loss']:.4f}, val {e['val_acc']:.4f}")
-    log(f"  {nsteps} steps an epoch (no step cap); main(config) wall {r['wall_s']:.1f} s, peak "
+    log(f"  {nsteps} steps an epoch (train split cut from {cut['full']} to {cut['kept']} "
+        f"nodes); main(config) wall {r['wall_s']:.1f} s, peak "
         f"device memory {r['peak_bytes'] / 2**30:.2f} GiB, SpMM launches by F {r['launches']}")
     if len(ct) != 2 or len(base) != 2:
         raise RuntimeError(f"expected 2 BN CT and 2 baseline epochs, got {len(ct)}, {len(base)}")
@@ -1846,6 +1879,14 @@ def _wait_ranks(tag: str, started, timeout: int = 600) -> list:
     return [json.loads((d / f"rank{r}.json").read_text()) for r in range(world)]
 
 
+def _kill(procs: list) -> None:
+    """Kill started processes that are still running (their caller failed)."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
 def _run_ranks(out: Path, tag: str, cfg: dict, world: int, f32_step: bool,
                timeout: int = 600, extra: dict | None = None) -> list:
     """``world`` ranks of :func:`dp_worker` sharing ``cuda:0`` over gloo,
@@ -1942,20 +1983,24 @@ def run_dp_shared(out: Path) -> dict:
     cfg = load_config(CONFIG)
     cfg.update(num_runs=1, max_epochs=1, reinit_retries=0, device=DP_DEVICE)
     one_cfg = dict(cfg, out_dir=str(root / "one"))
+    dp_cfg = dict(cfg, out_dir=str(root / "ranks"))
+    t0 = time.perf_counter()
+    started = _start_ranks(root, "ranks", dp_cfg, 2, f32_step=True)
     box = []
     loop = _capture_pipeline(box)
     try:
         one = _drive(one_cfg)
+        nsteps = -(-len(box[0].split_idx["train"]) // int(cfg["batch_size"]))
+        one_step = dp_f32_step(box[0], None)
+    except BaseException:  # the ranks would run on alone
+        _kill(started[1])
+        raise
     finally:
         PipelineCO.loop = loop
-    nsteps = -(-len(box[0].split_idx["train"]) // int(cfg["batch_size"]))
-    one_step = dp_f32_step(box[0], None)
-    box.clear()  # free the one-process run's memory for the ranks
+    box.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    dp_cfg = dict(cfg, out_dir=str(root / "ranks"))
-    t0 = time.perf_counter()
-    ranks = _run_ranks(root, "ranks", dp_cfg, 2, f32_step=True)
+    ranks = _wait_ranks("ranks", started)
     dp_wall = time.perf_counter() - t0
     recs, one_recs = _metrics(dp_cfg), one["records"]
     steps_dp = [np.load(root / "ranks" / f"rank{r}.npz") for r in range(2)]
@@ -1984,7 +2029,8 @@ def run_dp_shared(out: Path) -> dict:
         log(f"  rank {r['rank']}: main wall {r['wall_s']:.1f} s, peak device memory "
             f"{r['peak_bytes'] / 2**30:.2f} GiB, SpMM launches by F {r['launches']}")
     log(f"  one process: main wall {one['wall_s']:.1f} s, peak {one['peak_bytes'] / 2**30:.2f} "
-        f"GiB; the two ranks' wall {dp_wall:.1f} s (2 ranks on one card over gloo)")
+        f"GiB; the two ranks' wall {dp_wall:.1f} s (2 ranks on one card over gloo, beside the "
+        f"one-process run and 10c's ranks)")
     log(f"  f32 step: ranks bit-equal {step_ranks_equal}, max |DP - one process| {step_err:.3e}")
     dp, one_rows = rows["dp"], rows["one"]
     if ranks[0]["result"] != ranks[1]["result"]:
@@ -2015,16 +2061,23 @@ def run_dp_shared(out: Path) -> dict:
                 f32_step_ranks_equal=step_ranks_equal, f32_step_err=step_err)
 
 
-def run_fullgraph(out: Path) -> dict:
-    """Phase 10c: config_arxiv10.yml with ``full_graph: true`` on two ranks
-    sharing ``cuda:0`` over gloo, 2 epochs (one full-graph step each)."""
+def start_fullgraph(out: Path) -> tuple:
+    """Start phase 10c's ranks: config_arxiv10.yml with ``full_graph:
+    true`` on two ranks sharing ``cuda:0`` over gloo, 2 epochs (one
+    full-graph step each); :func:`finish_fullgraph` checks them. They run
+    beside 10b (its checks are results, not times)."""
     root = out / "fg"
     shutil.rmtree(root, ignore_errors=True)
     cfg = load_config(FG_CONFIG)
     cfg.update(num_runs=1, max_epochs=2, reinit_retries=0, full_graph=True, do_plot=False,
                device=DP_DEVICE, out_dir=str(root / "ranks"), data_dir=str(root / "data"))
-    t0 = time.perf_counter()
-    ranks = _run_ranks(root, "ranks", cfg, 2, f32_step=False)
+    return cfg, _start_ranks(root, "ranks", cfg, 2, f32_step=False), time.perf_counter()
+
+
+def finish_fullgraph(started: tuple) -> dict:
+    """Phase 10c's checks, once its ranks have exited."""
+    cfg, procs, t0 = started
+    ranks = _wait_ranks("ranks", procs)
     wall = time.perf_counter() - t0
     recs = _metrics(cfg)
     ct = [r for r in recs if r.get("event") == "epoch_ct"]
@@ -2038,7 +2091,7 @@ def run_fullgraph(out: Path) -> dict:
     for r in ranks:
         log(f"  rank {r['rank']}: main wall {r['wall_s']:.1f} s, peak device memory "
             f"{r['peak_bytes'] / 2**30:.2f} GiB")
-    log(f"  the two ranks' wall {wall:.1f} s (2 ranks on one card over gloo)")
+    log(f"  the two ranks' wall {wall:.1f} s (2 ranks on one card over gloo, beside 10b)")
     if [e["epoch"] for e in ct] != [0, 1]:
         raise RuntimeError(f"expected full-graph epochs [0, 1], got {[e['epoch'] for e in ct]}")
     losses = [e[k] for e in ct for k in ("loss_1", "loss_2")]
@@ -2401,56 +2454,71 @@ def run_dp_te(out: Path, te_rep: dict) -> dict:
 
 def run_dp_cut(out: Path, ct_rep: dict) -> dict:
     """Phase 11c: ``main`` on config_ctp.yml and config_h.yml (2 epochs, the
-    train split cut to 16 batches) and config_contrast.yml (phase 8's run:
-    2 warmup epochs, the split, 2 finetune epochs) on two ranks sharing the
-    card over gloo, each beside one process: the CTP and H runs here, CT's
-    phase 8's."""
+    train split cut to ``DP_CUT_STEPS`` batches) and config_contrast.yml
+    (phase 8's run: 2 warmup epochs, the split, 2 finetune epochs) on two
+    ranks sharing the card over gloo, each beside one process: the CTP and
+    H runs here, CT's phase 8's. The CT ranks start first and run beside
+    the CTP and H runs."""
+    ct_root = out / "dp11c_ct"
+    shutil.rmtree(ct_root, ignore_errors=True)
+    ct_cfg = load_config(CT_CONFIG)
+    ct_cfg.update(num_runs=1, warmup=2, ct_tk=1, max_epochs=4, reinit_retries=0,
+                  device=DP_DEVICE, out_dir=str(ct_root / "ranks"))
+    ct_started = _start_ranks(ct_root, "ranks", ct_cfg, 2, f32_step=False,
+                              extra=dict(epochs=True, pipeline="PipelineCT", te_probe=False))
     reps = {}
-    for tag, config, pipeline, event, keys in (
-            ("ctp", CTP_CONFIG, "PipelineCTP", "epoch_ctp",
-             ("loss_1", "loss_2", "loss_cr_1", "val_acc_1", "val_acc_2")),
-            ("h", H_CONFIG, "PipelineH", "epoch_h",
-             ("loss_1", "loss_2", "loss_pred", "loss_add", "val_acc_1", "val_acc_2"))):
-        root = out / f"dp11c_{tag}"
-        shutil.rmtree(root, ignore_errors=True)
-        cfg = load_config(config)
-        cfg.update(num_runs=1, max_epochs=2, reinit_retries=0, load_index=True,
-                   device=DP_DEVICE, data_dir=str(root / "data"))
-        cut = _cut_split(cfg, 16)
-        one = _drive(dict(cfg, out_dir=str(root / "one")))
-        gc.collect()
-        torch.cuda.empty_cache()
-        dp_cfg = dict(cfg, out_dir=str(root / "ranks"))
-        ranks = _epoch_ranks(root, "ranks", pipeline, dp_cfg)
-        rep = reps[tag] = _rank_summary(f"11c {tag}", ranks)
-        epochs, one_epochs = ([r for r in recs if r.get("event") == event]
-                              for recs in (_metrics(dp_cfg), one["records"]))
-        nsteps = -(-cut["kept"] // int(cfg["batch_size"]))
-        rep.update(config=config, train_cut=cut, steps=nsteps, epochs=epochs,
-                   one_wall_s=one["wall_s"], one_peak_bytes=one["peak_bytes"],
-                   launches_all=rep["launches_all"] + [one["launches"]],
-                   one_result=_result_of(one["result"]),
-                   diffs=_epoch_diffs(epochs, one_epochs, keys),
-                   step_ms=[e["epoch_train_s"] / nsteps * 1e3 for e in epochs],
-                   one_step_ms=[e["epoch_train_s"] / nsteps * 1e3 for e in one_epochs])
-        log(f"  11c {tag}: {nsteps} steps an epoch, ms a step DP {np.round(rep['step_ms'], 1)} "
-            f"one process {np.round(rep['one_step_ms'], 1)}; largest |DP - one| {rep['diffs']}; "
-            f"results DP {rep['result']} one {rep['one_result']}")
-        if [e["epoch"] for e in epochs] != [0, 1]:
-            raise RuntimeError(f"11c {tag}: expected epochs [0, 1]")
-        if not all(math.isfinite(e[k]) for e in epochs for k in keys):
-            raise RuntimeError(f"11c {tag}: a non-finite loss")
-        if not abs(rep["result"][0] - rep["one_result"][0]) <= 0.02:
-            raise RuntimeError(f"11c {tag}: DP best test not within 0.02 of one process's")
+    try:
+        for tag, config, pipeline, event, keys in (
+                ("ctp", CTP_CONFIG, "PipelineCTP", "epoch_ctp",
+                 ("loss_1", "loss_2", "loss_cr_1", "val_acc_1", "val_acc_2")),
+                ("h", H_CONFIG, "PipelineH", "epoch_h",
+                 ("loss_1", "loss_2", "loss_pred", "loss_add", "val_acc_1", "val_acc_2"))):
+            root = out / f"dp11c_{tag}"
+            shutil.rmtree(root, ignore_errors=True)
+            cfg = load_config(config)
+            cfg.update(num_runs=1, max_epochs=2, reinit_retries=0, load_index=True,
+                       device=DP_DEVICE, data_dir=str(root / "data"))
+            cut = _cut_split(cfg, DP_CUT_STEPS)
+            dp_cfg = dict(cfg, out_dir=str(root / "ranks"))
+            started = _start_ranks(root, "ranks", dp_cfg, 2, f32_step=False,
+                                   extra=dict(epochs=True, pipeline=pipeline, te_probe=False))
+            try:
+                one = _drive(dict(cfg, out_dir=str(root / "one")))
+            except BaseException:
+                _kill(started[1])
+                raise
+            gc.collect()
+            torch.cuda.empty_cache()
+            ranks = _wait_ranks("ranks", started, timeout=900)
+            rep = reps[tag] = _rank_summary(f"11c {tag}", ranks)
+            epochs, one_epochs = ([r for r in recs if r.get("event") == event]
+                                  for recs in (_metrics(dp_cfg), one["records"]))
+            nsteps = -(-cut["kept"] // int(cfg["batch_size"]))
+            rep.update(config=config, train_cut=cut, steps=nsteps, epochs=epochs,
+                       one_wall_s=one["wall_s"], one_peak_bytes=one["peak_bytes"],
+                       launches_all=rep["launches_all"] + [one["launches"]],
+                       one_result=_result_of(one["result"]),
+                       diffs=_epoch_diffs(epochs, one_epochs, keys),
+                       step_ms=[e["epoch_train_s"] / nsteps * 1e3 for e in epochs],
+                       one_step_ms=[e["epoch_train_s"] / nsteps * 1e3 for e in one_epochs])
+            log(f"  11c {tag}: {nsteps} steps an epoch, ms a step DP "
+                f"{np.round(rep['step_ms'], 1)} one process {np.round(rep['one_step_ms'], 1)}; "
+                f"largest |DP - one| {rep['diffs']}; results DP {rep['result']} one "
+                f"{rep['one_result']}")
+            if [e["epoch"] for e in epochs] != [0, 1]:
+                raise RuntimeError(f"11c {tag}: expected epochs [0, 1]")
+            if not all(math.isfinite(e[k]) for e in epochs for k in keys):
+                raise RuntimeError(f"11c {tag}: a non-finite loss")
+            if not abs(rep["result"][0] - rep["one_result"][0]) <= 0.02:
+                raise RuntimeError(f"11c {tag}: DP best test not within 0.02 of one "
+                                   "process's")
+    except BaseException:  # the CT ranks would run on alone
+        _kill(ct_started[1])
+        raise
     # CT beside phase 8's one-process run, the same config
-    root = out / "dp11c_ct"
-    shutil.rmtree(root, ignore_errors=True)
-    cfg = load_config(CT_CONFIG)
-    cfg.update(num_runs=1, warmup=2, ct_tk=1, max_epochs=4, reinit_retries=0,
-               device=DP_DEVICE, out_dir=str(root / "ranks"))
-    ranks = _epoch_ranks(root, "ranks", "PipelineCT", cfg)
+    ranks = _wait_ranks("ranks", ct_started, timeout=900)
     rep = reps["ct"] = _rank_summary("11c ct", ranks)
-    recs = _metrics(cfg)
+    recs = _metrics(ct_cfg)
     (split,) = [r for r in recs if r.get("event") == "split"]
     warm = [r for r in recs if r.get("event") == "warmup"]
     ft = [r for r in recs if r.get("event") == "finetune"]
@@ -2483,7 +2551,7 @@ def run_dp_cut(out: Path, ct_rep: dict) -> dict:
 # ------------------------------------------------------------------ phase 12
 
 TP_M = 2  # phase 12's model axis
-TP_STEPS = 128  # train batches an epoch in phase 12b
+TP_STEPS = 64  # train batches an epoch in phase 12b
 
 
 def tp_worker(a: dict) -> int:
@@ -2874,6 +2942,88 @@ def run_tools(out: Path, dev) -> dict:
     return rep
 
 
+# ------------------------------------------------------------------ phase 14
+
+PROBE_STEPS = 16  # train batches of the hard-draw run's one epoch in phase 14
+FLAT_AGG_BATCH = 128  # exp_flat_agg's batch in phase 14 (F = 8710, fanouts (10, 5))
+CTP_STEP_CUT = dict(scale=10, batch=128, iters=2)  # exp_ctp_step's cut in phase 14
+CALIBRATION = ("pubmed", 80)  # phase 14's calibration probe: dataset, epochs
+CALIBRATION_BAND = 0.03  # its clean accuracy's largest distance from TARGETS[dataset]
+
+
+def _probe_line(name: str, res: dict) -> None:
+    log(f"  [14] {name} {json.dumps(res)}")
+
+
+def _all_finite(d) -> bool:
+    if isinstance(d, dict):
+        return all(_all_finite(v) for v in d.values())
+    if isinstance(d, list):
+        return all(_all_finite(v) for v in d)
+    return not isinstance(d, float) or math.isfinite(d)
+
+
+def run_probes(out: Path, dev) -> dict:
+    """Phase 14: the port's probe tools on the card at cut shapes (see the
+    module doc). Each tool's JSON line is logged; any failure raises."""
+    rep, secs = {}, {}
+    t = time.perf_counter()
+    fa = rep["exp_flat_agg"] = exp_flat_agg.run(batch=FLAT_AGG_BATCH, iters=3)
+    _probe_line("exp_flat_agg", fa)
+    secs["exp_flat_agg"] = time.perf_counter() - t
+    if not (fa["max_rel_diff"] <= 1e-4 and _all_finite(fa) and min(fa["ms"].values()) > 0):
+        raise RuntimeError(f"exp_flat_agg: (a) against (b) {fa['max_rel_diff']:.3e} relative "
+                           f"(limit 1e-4), ms {fa['ms']}")
+
+    t = time.perf_counter()
+    cs = rep["exp_ctp_step"] = exp_ctp_step.run(old=True, **CTP_STEP_CUT)
+    _probe_line("exp_ctp_step --old", cs)
+    secs["exp_ctp_step"] = time.perf_counter() - t
+    tree, edge = (cs["legs"][k]["forward_loss"] for k in ("tree", "edge_list"))
+    if not (_all_finite(cs) and tree > 0 and abs(edge - tree) <= 1e-4 * tree):
+        raise RuntimeError(f"exp_ctp_step: forward losses tree {tree}, edge list {edge}; "
+                           f"legs {cs['legs']}")
+
+    t = time.perf_counter()
+    name, epochs = CALIBRATION
+    f = calibrate_synthetic.D.DATASET_REGISTRY[name].feature_noise
+    cal = rep["calibrate_synthetic"] = calibrate_synthetic.calibrate(
+        name, f, f, 1, scale=1, epochs=epochs, hidden=256, lr=5e-3, device=dev)
+    _probe_line(f"calibrate_synthetic {name} --lo {f} --hi {f} --iters 1", cal)
+    secs["calibrate_synthetic"] = time.perf_counter() - t
+    acc, target = cal["probes"][0]["acc"], calibrate_synthetic.TARGETS[name]
+    if not abs(acc - target) <= CALIBRATION_BAND:
+        raise RuntimeError(f"calibration probe: {name} clean accuracy {acc} not within "
+                           f"{CALIBRATION_BAND} of its target {target}")
+
+    t = time.perf_counter()
+    root = out / "hd14"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = load_config(CONFIG)
+    cfg.update(load_index=True, data_dir=str((root / "data").resolve()))
+    _link_products_cache(root / "data")
+    cut = _cut_split(cfg, PROBE_STEPS)
+    spmm.launch_counts.clear()
+    hd = probe_hard_draw.run(1, load_index=True, data_dir=cfg["data_dir"],
+                             out_dir=str(root / "run"), reinit_retries=0)
+    launches = {int(k): int(v) for k, v in spmm.launch_counts.items()}
+    rep["probe_hard_draw"] = dict(hd, launches=launches, cut=cut)
+    _probe_line(f"probe_hard_draw 1 ({PROBE_STEPS} batches)", rep["probe_hard_draw"])
+    secs["probe_hard_draw"] = time.perf_counter() - t
+    if not (_all_finite(hd) and 0 < hd["hard_draw_ct_best"] <= 1):
+        raise RuntimeError(f"probe_hard_draw: {hd}")
+    f, h = hd["feat"], hd["hidden"]
+    if not (launches.get(f, 0) >= 1 and launches.get(2 * h, 0) >= 1):
+        raise RuntimeError(f"the hard-draw run launched the SpMM {launches} times by F: its "
+                           f"leaf table (F={f}) and pair eval (F={2 * h}) must go through it")
+    for k in ("exp_flat_agg", "exp_ctp_step", "probe_hard_draw"):
+        if "card" not in rep[k] or "power_limit" not in rep[k]:
+            raise RuntimeError(f"{k}'s line names no card")
+    rep["seconds"] = secs
+    log("  [14] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return rep
+
+
 def time_shapes(dev, config: str, shapes, dtype: torch.dtype) -> list[dict]:
     """Check and time the kernel at a main path's own shapes on its full
     graph: its output (mean, in ``dtype`` in and out, as the path calls it)
@@ -3047,13 +3197,21 @@ def run(out: Path) -> int:
     dp_nccl = run_dp_nccl(out, dev)
     t10a = time.perf_counter()
     log(f"  [10a] {t10a - t10:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks of 10b and 10c and 10b's one process share the card
+    log("  [10c] arxiv full-graph training, 2 ranks sharing the card over gloo, started")
+    fg_started = start_fullgraph(out)
     log("  [10b] products, full width, 2 ranks sharing the card over gloo")
-    dp_rep = run_dp_shared(out)
+    try:
+        dp_rep = run_dp_shared(out)
+    except BaseException:
+        _kill(fg_started[1][1])
+        raise
     t10b = time.perf_counter()
     log(f"  [10b] {t10b - t10a:.1f} s")
-    log("  [10c] arxiv full-graph training, 2 ranks sharing the card over gloo")
-    fg_rep = run_fullgraph(out)
-    log(f"  [10c] {time.perf_counter() - t10b:.1f} s; phase 10 {time.perf_counter() - t10:.1f} s")
+    fg_rep = finish_fullgraph(fg_started)
+    log(f"  [10c] {time.perf_counter() - t10a:.1f} s from its start; phase 10 "
+        f"{time.perf_counter() - t10:.1f} s")
 
     log("[11] slice 7: data parallelism in the CTP, TE, H and CT epochs, use_bn and GAT")
     t11 = time.perf_counter()
@@ -3091,13 +3249,20 @@ def run(out: Path) -> int:
     tools_rep = run_tools(out, dev)
     log(f"  [13] phase 13 {time.perf_counter() - t13:.1f} s")
 
+    log("[14] the probe tools: exp_flat_agg, exp_ctp_step --old, calibrate_synthetic, "
+        "probe_hard_draw")
+    t14 = time.perf_counter()
+    probes_rep = run_probes(out, dev)
+    log(f"  [14] phase 14 {time.perf_counter() - t14:.1f} s")
+
     kernels = []
     for row in rows:
         by_path = {"co": main_rep["launches"].get(row["F"], 0),
                    "bn": bn_rep["launches"].get(row["F"], 0),
                    "dp": sum(r["launches"].get(str(row["F"]), 0) for r in dp_rep["ranks"]),
                    "tp": sum(c.get(row["F"], c.get(str(row["F"]), 0))
-                             for c in tp_prod["launches_all"])}
+                             for c in tp_prod["launches_all"]),
+                   "hd": probes_rep["probe_hard_draw"]["launches"].get(row["F"], 0)}
         k = spmm_row(row, sum(by_path.values()))
         k.update({f"launches_{p}": c for p, c in by_path.items()})
         kernels.append(k)
@@ -3139,7 +3304,7 @@ def run(out: Path) -> int:
                   profile=profile_rep, dp_nccl=dp_nccl, dp_shared=dp_rep, fullgraph=fg_rep,
                   epochs_nccl=epochs_nccl, dp_te=dp_te, dp_cut=dp_cut,
                   tp_small=tp_small, tp_products=tp_prod, tp_cora=tp_cora,
-                  tools=tools_rep, kernels=kernels,
+                  tools=tools_rep, probes=probes_rep, kernels=kernels,
                   script_s=time.perf_counter() - t_start)
     log(f"    whole script {report['script_s']:.1f} s")
     (out / "report.json").write_text(json.dumps(report, indent=1, default=str))

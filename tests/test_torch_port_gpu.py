@@ -283,3 +283,27 @@ def test_bench_spmm_small_on_cuda(cuda):
     op = spmm.Spmm.from_csr(csr)
     for x_dtype in (torch.float32, torch.bfloat16):
         _check_launches(op, csr, bench_spmm.features(n, f, x_dtype, cuda), f)
+
+
+@pytest.mark.gpu
+def test_flat_agg_forms_on_cuda(cuda):
+    """``tools/exp_flat_agg.py``'s forms (a) edge-list mean and (b) tree
+    aggregation on the card, with a random edge mask, against the same
+    forms on the CPU: f32, 1e-5 (``index_add_`` adds a row's up to 10
+    messages in another order on the card); (b) is a fixed-order masked
+    sum and must agree with (a) as well."""
+    from noise_gnn_tpu_torch.tools import exp_flat_agg
+
+    batch, fanouts, feat = 64, (10, 5), 384
+    n_sub = sum(exp_flat_agg.tree_sizes(batch, fanouts))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((n_sub, feat)).astype(np.float32))
+    mask = torch.from_numpy(rng.random(n_sub - batch) < 0.7)
+    add = torch.from_numpy(rng.integers(0, n_sub, (2, 2 * int(n_sub * 0.1))))
+    cpu = exp_flat_agg.forms(x, mask, batch, fanouts, add)
+    card = exp_flat_agg.forms(x.to(cuda), mask.to(cuda), batch, fanouts, add.to(cuda))
+    for name in ("edge_list", "structured"):
+        got = card[name]().cpu()
+        torch.testing.assert_close(got, cpu[name](), rtol=0, atol=1e-5, msg=name)
+    torch.testing.assert_close(card["edge_list"]().cpu(), cpu["structured"](), rtol=0,
+                               atol=1e-5)
