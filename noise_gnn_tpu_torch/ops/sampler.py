@@ -34,6 +34,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import count
+
 
 class TreeBatch(NamedTuple):
     """Static-shape sampled k-hop tree."""
@@ -123,7 +125,9 @@ def sample_khop_tree(gen: torch.Generator, csr, seeds: torch.Tensor,
                      fanouts: tuple[int, ...],
                      seed_mask: torch.Tensor | None = None, mesh=None) -> TreeBatch:
     """Sample the dense k-hop tree rooted at ``seeds`` (one hop per fanout);
-    with a ``mesh``, ``seeds`` is this rank's block of the batch."""
+    with a ``mesh``, ``seeds`` is this rank's block of the batch. While a
+    profiler runs, the counter ``sample_fill`` adds each hop's real child
+    slots over its allocated ones (``utils/profiling.py::count``)."""
     b = seeds.shape[0]
     if seed_mask is None:
         seed_mask = torch.ones(b, dtype=torch.bool, device=seeds.device)
@@ -134,4 +138,5 @@ def sample_khop_tree(gen: torch.Generator, csr, seeds: torch.Tensor,
             gen, csr.indptr, csr.indices, n_ids[-1], masks[-1], int(f), mesh)
         n_ids.append(children)
         masks.append(child_mask)
+        count("sample_fill", child_mask)
     return TreeBatch(tuple(n_ids), tuple(masks), tuple(int(f) for f in fanouts), b)

@@ -10,6 +10,9 @@ over the epoch's seed batches, the port runs a Python loop of eager steps:
 sample the tree on the device, gather its features, forward, loss,
 backward, optimizer step. Per-step metrics are added into one device
 tensor, so an epoch syncs with the host once, when the caller reads them.
+The co-teaching and TE steps and their phases (sample, forward, rewire,
+backward, optimizer) are spans of ``utils/profiling.py::trace`` named
+``ngt.*``, which record only while a profiler session runs.
 
 Every epoch also runs data-parallel, given a ``mesh`` (``parallel/mesh.py``;
 the JAX package's ``epoch_jit(mesh=...)``): each rank samples and forwards
@@ -67,6 +70,7 @@ from ..ops.sampler import sample_khop_tree
 from ..ops.scatter import fast_take
 from ..ops.tree_agg import TreeTopo
 from ..parallel.mesh import all_reduce_sum_, batch_sharding, gather_flat, gather_rows
+from ..utils.profiling import trace
 
 
 @dataclass
@@ -186,19 +190,21 @@ def _step(states, loss, mesh=None) -> None:
     runs over the data axis alone: under tensor parallelism a sharded
     leaf's gradient is its block's whole gradient already, and a
     replicated leaf's is the same on every model rank."""
-    for s in states:
-        s.opt.zero_grad(set_to_none=True)
-    loss.backward()
-    leaves = [p for s in states for p in nets.parameters(s.params)]
-    for p in leaves:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if mesh is not None and mesh.group is not None:
-        flat = all_reduce_sum_(mesh, torch.cat([p.grad.reshape(-1) for p in leaves]))
-        for p, g in zip(leaves, torch.split(flat, [p.numel() for p in leaves])):
-            p.grad.copy_(g.view_as(p.grad))
-    for s in states:
-        s.opt.step()
+    with trace("ngt.backward"):
+        for s in states:
+            s.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        leaves = [p for s in states for p in nets.parameters(s.params)]
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if mesh is not None and mesh.group is not None:
+            flat = all_reduce_sum_(mesh, torch.cat([p.grad.reshape(-1) for p in leaves]))
+            for p, g in zip(leaves, torch.split(flat, [p.numel() for p in leaves])):
+                p.grad.copy_(g.view_as(p.grad))
+    with trace("ngt.optimizer"):
+        for s in states:
+            s.opt.step()
 
 
 CT_METRICS = ("loss_1", "loss_2", "pure_ratio_1", "pure_ratio_2", "correct_1",
@@ -239,22 +245,25 @@ def ct_step(spec: nets.NetSpec, s1: TrainState, s2: TrainState, data: GraphData,
     both states in place and returns its :data:`CT_METRICS` (device). With
     a ``mesh``, this rank samples and forwards its block of the seeds and
     the loss sees the gathered whole batch."""
-    ls, lm = _local(mesh, b_seeds, b_mask)
-    tb, xs, la = _sample_tree(gen, data, ls, lm, fanouts, exact_leaf, mesh)
-    yb = data.yhn[b_seeds]
-    yt = data.y[b_seeds]
-    cb = data.clean[b_seeds]
-    o1 = nets.apply_tree(spec, s1.params, xs, list(tb.masks), tb.fanouts,
-                         train=True, gen=gen, leaf_agg=la, mesh=mesh)["logits"]
-    o2 = nets.apply_tree(spec, s2.params, xs, list(tb.masks), tb.fanouts,
-                         train=True, gen=gen, leaf_agg=la, mesh=mesh)["logits"]
-    o1, o2 = gather_rows(mesh, o1), gather_rows(mesh, o2)
-    if algo == "codi":
-        out = codi_loss(o1, o2, yb, fr, cb, co_lambda, b_mask)
-    else:
-        out = ct_loss(o1, o2, yb, fr, cb, b_mask)
-    _step((s1, s2), out.loss_1 + out.loss_2, mesh)
-    return ct_metrics(out, o1, o2, yb, yt, cb, b_mask)
+    with trace("ngt.ct_step"):
+        ls, lm = _local(mesh, b_seeds, b_mask)
+        with trace("ngt.sample"):
+            tb, xs, la = _sample_tree(gen, data, ls, lm, fanouts, exact_leaf, mesh)
+        yb = data.yhn[b_seeds]
+        yt = data.y[b_seeds]
+        cb = data.clean[b_seeds]
+        with trace("ngt.forward"):
+            o1 = nets.apply_tree(spec, s1.params, xs, list(tb.masks), tb.fanouts,
+                                 train=True, gen=gen, leaf_agg=la, mesh=mesh)["logits"]
+            o2 = nets.apply_tree(spec, s2.params, xs, list(tb.masks), tb.fanouts,
+                                 train=True, gen=gen, leaf_agg=la, mesh=mesh)["logits"]
+            o1, o2 = gather_rows(mesh, o1), gather_rows(mesh, o2)
+            if algo == "codi":
+                out = codi_loss(o1, o2, yb, fr, cb, co_lambda, b_mask)
+            else:
+                out = ct_loss(o1, o2, yb, fr, cb, b_mask)
+        _step((s1, s2), out.loss_1 + out.loss_2, mesh)
+        return ct_metrics(out, o1, o2, yb, yt, cb, b_mask)
 
 
 def ct_epoch(spec: nets.NetSpec, s1: TrainState, s2: TrainState, data: GraphData,
@@ -505,8 +514,9 @@ def te_step_loss(spec: nets.NetSpec, p1: dict, p2: dict, data: GraphData, seeds,
     (whose row blocks the ranks share), and the contrast passes run whole
     on every rank, counted once. Returns (loss, (ct, o1, o2, lc1, lc2))."""
     ls, lm = _local(mesh, seeds, mask)
-    tb = sample_khop_tree(gen, data.csr, ls, fanouts, lm, mesh)
-    sub = _flat_subgraph(data, tb)
+    with trace("ngt.sample"):
+        tb = sample_khop_tree(gen, data.csr, ls, fanouts, lm, mesh)
+        sub = _flat_subgraph(data, tb)
     x_sub, n_id, _, topo = sub
     n_sub, bsz = x_sub.shape[0], tb.batch_size
     yb, cb = data.yhn[seeds], data.clean[seeds]
@@ -515,24 +525,27 @@ def te_step_loss(spec: nets.NetSpec, p1: dict, p2: dict, data: GraphData, seeds,
         return nets.apply(spec, p, x_sub, topo, num_nodes=n_sub, train=True, gen=gen,
                           n_id=n_id, noise_rate=spl_noise_rate_pos, branch="pure", mesh=mesh)
 
-    out1, out2 = pure(p1), pure(p2)
-    o1, o2 = (gather_rows(mesh, o["z_pure"][:bsz]) for o in (out1, out2))
-    if algo == "codi":
-        ct = codi_loss(o1, o2, yb, forget_rate, cb, co_lambda, mask)
-    else:
-        ct = ct_loss(o1, o2, yb, forget_rate, cb, mask)
-    loss = ct.loss_1 + ct.loss_2
+    with trace("ngt.forward"):
+        out1, out2 = pure(p1), pure(p2)
+        o1, o2 = (gather_rows(mesh, o["z_pure"][:bsz]) for o in (out1, out2))
+        if algo == "codi":
+            ct = codi_loss(o1, o2, yb, forget_rate, cb, co_lambda, mask)
+        else:
+            ct = ct_loss(o1, o2, yb, forget_rate, cb, mask)
+        loss = ct.loss_1 + ct.loss_2
     lc1 = lc2 = torch.zeros((), dtype=torch.float32, device=x_sub.device)
     if use_contrast:
-        wx, wn_id, _, wtopo = _whole_subgraph(mesh, data, sub)
-        h1 = gather_flat(mesh, out1["h_pure"], topo.sizes)
-        h2 = gather_rows(mesh, out2["h_pure"][:bsz])  # the seeds' rows are all it reads
-        pos_topo, neg_topo = topk_rewire_tree(h1, wtopo, spl_rewire_rate, mesh=mesh)
-        lc1, lc2 = te_contrast_loss(spec, _counted_once(mesh, p1), _counted_once(mesh, p2),
-                                    wx, wn_id, h1, h2, ct.noisy_1, ct.noisy_2, pos_topo,
-                                    neg_topo, gen, wtopo.batch_size, spl_noise_rate_pos,
-                                    spl_noise_rate_neg, _whole_pass(mesh))
-        loss = loss + spl_cont_beta * (lc1 + lc2)
+        with trace("ngt.rewire"):
+            wx, wn_id, _, wtopo = _whole_subgraph(mesh, data, sub)
+            h1 = gather_flat(mesh, out1["h_pure"], topo.sizes)
+            h2 = gather_rows(mesh, out2["h_pure"][:bsz])  # the seeds' rows are all it reads
+            pos_topo, neg_topo = topk_rewire_tree(h1, wtopo, spl_rewire_rate, mesh=mesh)
+        with trace("ngt.forward"):
+            lc1, lc2 = te_contrast_loss(spec, _counted_once(mesh, p1), _counted_once(mesh, p2),
+                                        wx, wn_id, h1, h2, ct.noisy_1, ct.noisy_2, pos_topo,
+                                        neg_topo, gen, wtopo.batch_size, spl_noise_rate_pos,
+                                        spl_noise_rate_neg, _whole_pass(mesh))
+            loss = loss + spl_cont_beta * (lc1 + lc2)
     return loss, (ct, o1, o2, lc1, lc2)
 
 
@@ -551,16 +564,18 @@ def te_epoch(spec: nets.NetSpec, s1: TrainState, s2: TrainState, data: GraphData
     fr = torch.tensor(forget_rate, dtype=torch.float32, device=seeds.device)
     tot = torch.zeros(len(TE_METRICS), dtype=torch.float32, device=seeds.device)
     for b_seeds, b_mask in zip(seeds, masks):
-        loss, (ct, o1, o2, lc1, lc2) = te_step_loss(spec, s1.params, s2.params, data, b_seeds,
-                                                    b_mask, gen, fr, fanouts, mesh=mesh, **kw)
-        _step((s1, s2), loss, mesh)
-        yt = data.y[b_seeds]
-        tot += torch.stack([
-            ct.loss_1.detach(), ct.loss_2.detach(), ct.pure_ratio_1, ct.pure_ratio_2,
-            lc1.detach(), lc2.detach(),
-            _acc_count(o1.detach(), yt, b_mask).float(),
-            _acc_count(o2.detach(), yt, b_mask).float(),
-        ])
+        with trace("ngt.te_step"):
+            loss, (ct, o1, o2, lc1, lc2) = te_step_loss(spec, s1.params, s2.params, data,
+                                                        b_seeds, b_mask, gen, fr, fanouts,
+                                                        mesh=mesh, **kw)
+            _step((s1, s2), loss, mesh)
+            yt = data.y[b_seeds]
+            tot += torch.stack([
+                ct.loss_1.detach(), ct.loss_2.detach(), ct.pure_ratio_1, ct.pure_ratio_2,
+                lc1.detach(), lc2.detach(),
+                _acc_count(o1.detach(), yt, b_mask).float(),
+                _acc_count(o2.detach(), yt, b_mask).float(),
+            ])
     return dict(zip(TE_METRICS, tot))
 
 

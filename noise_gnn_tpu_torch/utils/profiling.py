@@ -1,48 +1,160 @@
-"""Tracing and throughput observability, and the CUDA-event timers and
-published H100 rates that the card's scripts (``chip_smoke.py`` and the
-tools under ``tools/``) time and bound kernels with.
+"""The program's spans and counters, the profiler session an operator
+starts, and the CUDA-event timers and published H100 rates that the card's
+scripts (``chip_smoke.py`` and the tools under ``tools/``) time and bound
+kernels with.
 
-Port of ``noise_gnn_tpu/utils/profiling.py``:
+Port of ``noise_gnn_tpu/utils/profiling.py``, whose spans here also time
+themselves:
 
-* ``trace(name)``      — context manager adding a named region to a
-                         ``torch.profiler`` trace (and an NVTX range on a card);
+* ``trace(name)``      — a named span of the program. A running
+                         ``torch.profiler`` session is the switch: with none,
+                         it is one shared null context and costs one flag
+                         check; within one, it is a ``record_function``
+                         range in the trace and a row of the span table;
+* ``count(name, mask)``— a counter of the True entries of a mask over its
+                         size, kept on the mask's device while a profiler
+                         runs;
+* ``spans`` / ``counts``
+  / ``reset``          — the span table and the counters: read, and emptied;
 * ``start_profile`` /
   ``stop_profile``     — one ``torch.profiler`` session, written as a Chrome
-                         trace into a directory;
-* ``Throughput``       — epoch-level counter turning step times into
-                         edges/s, seeds/s and step-latency percentiles.
+                         trace into a directory.
+
+A span's row holds its calls, its total time and its self time (the total
+less what its child spans cover), timed between two marks on the clock of
+the work it covers: CUDA events on the current stream once CUDA is in use
+in the process, the host's clock otherwise. Event pairs are resolved when
+they have completed (``Event.query``, no sync) and the rest when the table
+is read. Spans nest within one thread.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
 
-import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate, published
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 
+_profiling = torch._C._autograd._profiler_enabled  # a running profiler session
+_OFF = contextlib.nullcontext()
 
 _session: dict = {}
 
 
-@contextlib.contextmanager
+class _Table:
+    """What the spans and counters have recorded since the last reset."""
+
+    def __init__(self):
+        self.rows: dict[str, list] = {}  # name -> [calls, ms, self ms]
+        self.pending: collections.deque = collections.deque()  # (name, parent, start, end)
+        self.open: list[str] = []  # the names of the open spans, innermost last
+        self.events: list = []  # finished CUDA events, reused
+        self.counts: dict[str, list] = {}  # name -> [device count, slots]
+
+    def mark(self, cuda: bool):
+        """A span's edge: a CUDA event on the current stream, or the host's
+        clock."""
+        if not cuda:
+            return time.perf_counter()
+        ev = self.events.pop() if self.events else torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def close(self, name: str, start, end) -> None:
+        self.open.pop()
+        self.pending.append((name, self.open[-1] if self.open else None, start, end))
+        self.resolve(wait=False)
+
+    def resolve(self, wait: bool) -> None:
+        """Add the finished spans to the rows, oldest first: their ends were
+        marked in this order on one clock, so they complete in it."""
+        while self.pending:
+            name, parent, start, end = self.pending[0]
+            if isinstance(end, float):
+                ms = (end - start) * 1e3
+            else:
+                if not end.query():
+                    if not wait:
+                        return
+                    end.synchronize()
+                ms = start.elapsed_time(end)
+                self.events += (start, end)
+            self.pending.popleft()
+            row = self.rows.setdefault(name, [0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += ms
+            row[2] += ms
+            if parent is not None:
+                self.rows.setdefault(parent, [0, 0.0, 0.0])[2] -= ms
+
+
+_table = _Table()
+
+
+class _Span:
+    __slots__ = ("name", "rf", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = record_function(self.name)
+        self.rf.__enter__()
+        _table.open.append(self.name)
+        self.start = _table.mark(torch.cuda.is_initialized())
+        return self
+
+    def __exit__(self, *exc):
+        end = _table.mark(not isinstance(self.start, float))
+        self.rf.__exit__(*exc)
+        _table.close(self.name, self.start, end)
+        return False
+
+
 def trace(name: str):
-    """A named region: a ``record_function`` span in a profiler trace, and
-    an NVTX range where CUDA is available."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+    """A named span of the program: the shared null context when no
+    profiler session runs; within one, a ``record_function`` range and a
+    row of :func:`spans`."""
+    return _Span(name) if _profiling() else _OFF
+
+
+def count(name: str, mask: torch.Tensor) -> None:
+    """While a profiler session runs, add the True entries of ``mask`` to
+    counter ``name`` (on the mask's device, no sync) and its size to the
+    counter's slots."""
+    if not _profiling():
+        return
+    c = _table.counts.get(name)
+    if c is None:
+        c = _table.counts[name] = [torch.zeros((), dtype=torch.int64, device=mask.device), 0]
+    c[0] += mask.sum()
+    c[1] += mask.numel()
+
+
+def spans() -> dict[str, dict]:
+    """``{name: {"calls", "ms", "self_ms"}}`` of every span recorded since
+    the last :func:`reset`, waiting for the device where it must."""
+    _table.resolve(wait=True)
+    return {k: {"calls": c, "ms": ms, "self_ms": own} for k, (c, ms, own) in _table.rows.items()}
+
+
+def counts() -> dict[str, dict]:
+    """``{name: {"hits", "slots"}}`` of every counter since the last
+    :func:`reset` (reading them syncs with the device)."""
+    return {k: {"hits": int(n.item()), "slots": s} for k, (n, s) in _table.counts.items()}
+
+
+def reset() -> None:
+    """Empty the span table and the counters."""
+    _table.rows.clear()
+    _table.pending.clear()
+    _table.counts.clear()
 
 
 def start_profile(log_dir: str) -> None:
@@ -78,37 +190,6 @@ def tree_edges_per_batch(batch_size: int, fanouts: tuple[int, ...]) -> int:
         width *= f
         total += width
     return total
-
-
-class Throughput:
-    """Accumulates per-step wall times; reports edges/s and percentiles."""
-
-    def __init__(self, batch_size: int, fanouts: tuple[int, ...]):
-        self.edges_per_batch = tree_edges_per_batch(batch_size, fanouts)
-        self.batch_size = batch_size
-        self._times: list[float] = []
-        self._t0: float | None = None
-
-    def tick(self) -> None:
-        now = time.perf_counter()
-        if self._t0 is not None:
-            self._times.append(now - self._t0)
-        self._t0 = now
-
-    def epoch_stats(self) -> dict:
-        if not self._times:
-            return {}
-        t = np.asarray(self._times)
-        stats = {
-            "steps": int(t.size),
-            "step_ms_p50": float(np.percentile(t, 50) * 1e3),
-            "step_ms_p99": float(np.percentile(t, 99) * 1e3),
-            "edges_per_s": float(self.edges_per_batch / np.median(t)),
-            "seeds_per_s": float(self.batch_size / np.median(t)),
-        }
-        self._times.clear()
-        self._t0 = None
-        return stats
 
 
 def time_ms(fn, reps: int, warm: int = 2) -> float:
