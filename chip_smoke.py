@@ -6,10 +6,11 @@
 Phases (any failure exits nonzero; the last stdout line is printed only
 when every phase passed):
 
-1. Device: ``nvidia-smi`` name and power limit, the torch device; build both
+1. Device: ``nvidia-smi`` name and power limit, the torch device; build the
    CUDA kernels with ``nvcc`` and the host graph runtime with ``g++``, all
    started together: the SpMM (``noise_gnn_tpu_torch/csrc/spmm.cu``), the
-   gather ring (``noise_gnn_tpu_torch/csrc/gather_ring.cu``) and
+   gather ring (``noise_gnn_tpu_torch/csrc/gather_ring.cu``), the rewire's
+   extrema and values (``noise_gnn_tpu_torch/csrc/rewire_sim.cu``) and
    ``noise_gnn_tpu_torch/csrc/graph_runtime.cpp`` (which every CSR of the
    port comes from), and report the build times.
 2. Kernels against their plain versions on the card. SpMM: mean and sum, f32
@@ -312,6 +313,21 @@ when every phase passed):
    tool's seconds are logged; the hard-draw run's launches enter the
    products rows of the kernels line.
 
+15. The rewire's kernels (``csrc/rewire_sim.cu``) at the TE cell's shape
+   (``run_rewire_kernels``: b = 512, fanouts (10, 5, 5), 159,232 random f32
+   rows, D = 256, 80% of the tree's edges): the extrema of every row, both
+   signs, bit-equal to the plain version (cuBLAS blocks, the negation, the
+   exclusions, ``aminmax``); one group's chosen segments (8 blocks, both
+   signs) bit-equal to the plain version; two blocks' similarities
+   bit-equal to ``hp[rows] @ hn.T``; ``stable_topk``'s keys of one group's
+   maxima bit-equal to the plain version's. Then each kernel, its plain
+   version and its library line (the extrema: ``hp[rows] @ hn.T``, the
+   negation and both ``aminmax`` passes, 78 blocks; the values: the
+   group's 8 products and the gather; the keys: none) timed in turns.
+   The launches of phase 7's contrast run and phase 8's uninterrupted H
+   run (both take the fused route at full width), each counted from 0,
+   enter the kernels line.
+
 Then it prints one ``{"kernels": [...]}`` line (errors from the full-size
 checks, launches from the main paths; the products rows count phase 3's,
 9b's, 10b's ranks', 12b's ranks' and one-process runs and 14's hard-draw
@@ -381,6 +397,7 @@ SOURCE = "noise_gnn_tpu_torch/csrc/spmm.cu"
 REPLACES = "noise_gnn_tpu/ops/pallas_spmm.py:147"
 GATHER_SOURCE = "noise_gnn_tpu_torch/csrc/gather_ring.cu"
 GATHER_REPLACES = "tools/exp_dma_gather.py:56"
+REWIRE_SOURCE = "noise_gnn_tpu_torch/csrc/rewire_sim.cu"
 # the main paths' SpMM shapes: (name, F, launches expected per run)
 SHAPES = (("leaf table", 100, 1), ("eval pair", 512, 4), ("eval single", 256, 4))
 CTP_SHAPES = (("arxiv leaf table", 128), ("arxiv eval pair", 512), ("arxiv load eval", 256))
@@ -1181,7 +1198,9 @@ def run_te_path(out: Path, dev) -> dict:
     te_step_loss, te_epoch = steps.te_step_loss, steps.te_epoch
     steps.topk_rewire_tree, steps.te_step_loss = timed_rewire, logged_step
     try:
+        sddmm.launch_counts.clear()
         r = drive(cfg)
+        rewire_launches = dict(sddmm.launch_counts)
         rewire_ms = [a.elapsed_time(b) for a, b in events]
         events.clear()
         # the witness: the same run (the same forget rates) with the
@@ -1231,13 +1250,16 @@ def run_te_path(out: Path, dev) -> dict:
                plain_step_ms=plain["epoch_train_s"] / nsteps * 1e3,
                contrast_step_ms=cont["epoch_train_s"] / nsteps * 1e3,
                rewire_calls=len(rewire_ms), rewire_ms_mean=float(np.mean(rewire_ms)),
-               rewire_share=share, block_matmul_ms=mm, result=list(r["result"]))
+               rewire_share=share, rewire_launches=rewire_launches, block_matmul_ms=mm,
+               result=list(r["result"]))
     log(f"  {nsteps} steps an epoch: plain {rep['plain_step_ms']:.1f} ms a step, contrast "
         f"{rep['contrast_step_ms']:.1f} ms a step; {len(rewire_ms)} rewires of "
         f"{rep['rewire_ms_mean']:.1f} ms each (CUDA events): {100 * share:.1f}% of the "
         f"contrast epoch's train time; one rewire block's similarity matmul "
         f"[2048, 256] x [256, {n}] f32 {mm['highest']:.3f} ms ('highest'), "
         f"{mm['high']:.3f} ms with TF32")
+    log(f"  the rewire kernels' launches over the run's {len(rewire_ms)} rewires: "
+        f"{rewire_launches}")
     log(f"  main(config) wall {r['wall_s']:.1f} s, peak device memory "
         f"{r['peak_bytes'] / 2**30:.2f} GiB, SpMM launches by F {r['launches']}")
     losses = [e[k] for e in epochs + w_epochs
@@ -1311,7 +1333,9 @@ def run_h_path(out: Path) -> dict:
             events.clear()
             seen.clear()
             cfg = dict(copy.deepcopy(base), out_dir=str(out / "h" / name), **over)
+            sddmm.launch_counts.clear()
             r = runs[name] = _drive(cfg)  # main: algo_type hpseudo -> PipelineH
+            r["rewire_launches"] = dict(sddmm.launch_counts)
             r["epochs"] = _events(r, "epoch_h")
             r["rewire_ms"] = [a.elapsed_time(b) for a, b in events]
             r["steps"] = list(seen)
@@ -1352,13 +1376,16 @@ def run_h_path(out: Path) -> dict:
                pseudo_step_ms=pseudo["epoch_train_s"] / nsteps * 1e3,
                rewire_ms_mean=float(np.mean(rewire_ms)),
                rewire_share=sum(rewire_ms) / (pseudo["epoch_train_s"] * 1e3),
+               rewire_launches=runs["full"]["rewire_launches"],
                runs={k: dict(wall_s=r["wall_s"], peak_bytes=r["peak_bytes"],
-                             launches=r["launches"]) for k, r in runs.items()},
+                             launches=r["launches"], rewire_launches=r["rewire_launches"])
+                     for k, r in runs.items()},
                launches=runs["full"]["launches"], peak_bytes=runs["full"]["peak_bytes"])
     log(f"  {nsteps} steps an epoch: plain {rep['plain_step_ms']:.1f} ms a step, pseudo "
         f"{rep['pseudo_step_ms']:.1f} ms a step; {len(rewire_ms)} rewires of the raw features "
         f"of {rep['rewire_ms_mean']:.2f} ms each (CUDA events): {100 * rep['rewire_share']:.1f}% "
-        f"of the pseudo epoch's train time")
+        f"of the pseudo epoch's train time; the rewire kernels' launches over them "
+        f"{rep['rewire_launches']}")
     log(f"  resumed epoch 1 against the uninterrupted run: summed losses rel diff "
         f"{resume_err:.3e} (required 0: bit-equal)")
     if resume_err != 0.0:
@@ -3095,6 +3122,103 @@ def time_shapes(dev, config: str, shapes, dtype: torch.dtype) -> list[dict]:
     return rows
 
 
+def run_rewire_kernels(dev) -> list[dict]:
+    """Phase 15: the rewire's extrema and values kernels at the TE cell's
+    shape, checked bit for bit and timed in turns against their plain
+    versions and library lines (see phase 15 of the module doc)."""
+    b, fanouts, block = 512, (10, 5, 5), 2048
+    n = b * 311
+    gen = torch.Generator(device=dev).manual_seed(15)
+    topo = TreeTopo(b, fanouts, torch.rand(n - b, generator=gen, device=dev) < 0.8)
+    h = torch.randn((n, 256), generator=gen, device=dev)
+    hn, k2, _, _, pos_keep = rewire._plan(h, topo, 0.1)
+    d, t, nb = hn.shape[1], n // sddmm.SEG, -(-n // block)
+    hnt = hn.T.contiguous()
+    excl = [rewire._exclusions(topo, pos_keep), rewire._exclusions(topo, topo.edge_mask)]
+    blocks = range(nb)
+
+    def extrema():
+        return sddmm.segment_extrema(hn, blocks, block, excl[0], excl[1], hnt)
+
+    got = extrema()
+    want = sddmm._extrema_plain(hn, blocks, block, excl[0], excl[1])
+    ext_equal = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                    for g, w in zip(got, want))
+    del want
+    grp = range(0, rewire.GROUP)
+    rows = slice(0, rewire.GROUP * block)
+    picks = [(sddmm.select_segments(x[rows].view(len(grp), -1), k2), e, s)
+             for x, e, s in zip(got, excl, (False, True))]
+    del got
+
+    def values():
+        return sddmm.segment_values(hn, grp, block, picks, hnt)
+
+    val_equal = all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in
+                    zip(values(), sddmm._values_plain(hn, grp, block, picks)))
+    hp = sddmm.padded_rows(hn, block)
+    sim_equal = all(torch.equal(sddmm.similarity_rows(hn, r0, block, hnt).view(torch.int32),
+                                (hp[r0:r0 + block] @ hn.T).view(torch.int32))
+                    for r0 in (0, 40 * block))
+    log(f"  extrema bit-equal to the plain version {ext_equal}; one group's values "
+        f"{val_equal}; two blocks' similarities to hp[rows] @ hn.T {sim_equal}")
+    if not (ext_equal and val_equal and sim_equal):
+        raise RuntimeError("the rewire's kernels differ from their plain versions")
+
+    def library_extrema():
+        for i in blocks:
+            s = hp[i * block:(i + 1) * block] @ hn.T
+            for x in (s, -s):
+                torch.aminmax(x.view(-1, sddmm.SEG).view(torch.int32), dim=1)
+
+    def library_values():
+        out = []
+        for j, i in enumerate(grp):
+            s = (hp[i * block:(i + 1) * block] @ hn.T).view(-1, sddmm.SEG)
+            out += [s[si[j]] for si, _, _ in picks]
+        return out
+
+    turns = time_turns({"extrema": extrema, "extrema_library": library_extrema,
+                        "values": values, "values_library": library_values}, turns=2, reps=3,
+                       warm=1)
+    # stable_topk's keys at a group's first stage: [8, 2,547,712] maxima
+    x = torch.randn((rewire.GROUP, block * t), generator=gen, device=dev)
+    x[x.abs() < 0.05] = 0.0
+    if not torch.equal(sddmm.topk_keys(x), sddmm._keys_plain(x)):
+        raise RuntimeError("the keys kernel differs from its plain version")
+    turns.update(time_turns({"keys": lambda: sddmm.topk_keys(x)}, turns=2, reps=10))
+    ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    plain = {"extrema": time_ms(lambda: sddmm._extrema_plain(hn, blocks, block, *excl),
+                                reps=1, warm=1),
+             "values": time_ms(lambda: sddmm._values_plain(hn, grp, block, picks), reps=2,
+                               warm=1),
+             "keys": time_ms(lambda: sddmm._keys_plain(x), reps=10)}
+    ntiles = sddmm.tile_count(0, t, t)
+    entries = sum(int(p[0].numel()) for p in picks)
+    work = {"extrema": (ntiles * sddmm.SEG ** 2 * d * 2, n * d * 4 + 2 * n * t * 4),
+            "values": (entries * sddmm.SEG * d * 2,
+                       entries * (d * 4 + sddmm.SEG * 4) + t * d * sddmm.SEG * 4),
+            "keys": (0, x.numel() * 12)}
+    shapes = {"extrema": f"TE cell: {n} rows, D = {d}, both signs, {nb} blocks",
+              "values": f"TE cell: one group of {len(grp)} blocks, 2 x {k2} segments",
+              "keys": f"TE cell: one group's maxima, {tuple(x.shape)}"}
+    library = {"extrema": "hp[rows] @ hn.T, -sim, aminmax of both, per block",
+               "values": "hp[rows] @ hn.T per block and the gather", "keys": None}
+    rows_out = []
+    for k, (ops, nbytes) in work.items():
+        o_ms, b_ms = ops / FP32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        rows_out.append(dict(
+            kernel=k, name=f"rewire {k} ({shapes[k]})", ms=ms[k], plain_ms=plain[k],
+            library_ms=ms.get(f"{k}_library"), bound_ms=max(o_ms, b_ms),
+            bound_by="operations" if o_ms >= b_ms else "bytes", ops=ops, bytes=nbytes,
+            turns_ms=turns[k], library_turns_ms=turns.get(f"{k}_library"),
+            library=library[k], bit_equal=True))
+        log(f"  {rows_out[-1]['name']}: kernel {ms[k]:.3f} ms (turns {turns[k]}), library "
+            f"{ms.get(k + '_library')} ms, plain {plain[k]:.3f} ms, bound "
+            f"{rows_out[-1]['bound_ms']:.3f} ms ({rows_out[-1]['bound_by']})")
+    return rows_out
+
+
 def spmm_row(row: dict, launches: int) -> dict:
     return dict(
         name=f"spmm_csr ({row['shape']}, F={row['F']} {row['dtype']})", route="cuda",
@@ -3122,14 +3246,15 @@ def run(out: Path) -> int:
         t = time.perf_counter()
         return build(), time.perf_counter() - t
 
-    # a fresh checkout has nothing built: both kernels (nvcc) and the host
+    # a fresh checkout has nothing built: the kernels (nvcc) and the host
     # graph runtime (g++), all started together
-    with ThreadPoolExecutor(3) as pool:
-        (lib_s, _), (lib_g, _), (_, native_s) = pool.map(
-            timed, (spmm.build, gather_ring.build, native.build))
+    with ThreadPoolExecutor(4) as pool:
+        (lib_s, _), (lib_g, _), (lib_r, _), (_, native_s) = pool.map(
+            timed, (spmm.build, gather_ring.build, sddmm.build, native.build))
     build_s = time.perf_counter() - t0
-    log(f"    built {lib_s.name} from {SOURCE} and {lib_g.name} from {GATHER_SOURCE} "
-        f"in {build_s:.1f} s (the graph runtime in {native_s:.1f} s beside them)")
+    log(f"    built {lib_s.name} from {SOURCE}, {lib_g.name} from {GATHER_SOURCE} and "
+        f"{lib_r.name} from {REWIRE_SOURCE} in {build_s:.1f} s (the graph runtime in "
+        f"{native_s:.1f} s beside them)")
 
     log("[2] kernels against their plain versions")
     cases = check_kernel(dev)
@@ -3255,6 +3380,9 @@ def run(out: Path) -> int:
     probes_rep = run_probes(out, dev)
     log(f"  [14] phase 14 {time.perf_counter() - t14:.1f} s")
 
+    log("[15] the rewire's kernels at the TE cell's shape")
+    rewire_rows = run_rewire_kernels(dev)
+
     kernels = []
     for row in rows:
         by_path = {"co": main_rep["launches"].get(row["F"], 0),
@@ -3294,6 +3422,12 @@ def run(out: Path) -> int:
         k = spmm_row(row, sum(by_path.values()))
         k.update({f"launches_{p}": c for p, c in by_path.items()})
         kernels.append(k)
+    for row in rewire_rows:
+        by_path = {p: rep["rewire_launches"].get(row["kernel"], 0)
+                   for p, rep in (("te", te_rep), ("h", h_rep))}
+        kernels.append(dict(row, route="cuda", source=REWIRE_SOURCE, replaces=None,
+                            launches=sum(by_path.values()),
+                            **{f"launches_{p}": c for p, c in by_path.items()}))
     report = dict(nvidia_smi=smi, device=kind, count=count, build_s=build_s,
                   checks=cases, gather_checks=gather_cases, small_path=small,
                   small_ctp=small_ctp, small_rewire=small_rewire, small_te=small_te,
@@ -3304,7 +3438,8 @@ def run(out: Path) -> int:
                   profile=profile_rep, dp_nccl=dp_nccl, dp_shared=dp_rep, fullgraph=fg_rep,
                   epochs_nccl=epochs_nccl, dp_te=dp_te, dp_cut=dp_cut,
                   tp_small=tp_small, tp_products=tp_prod, tp_cora=tp_cora,
-                  tools=tools_rep, probes=probes_rep, kernels=kernels,
+                  tools=tools_rep, probes=probes_rep, rewire_kernels=rewire_rows,
+                  kernels=kernels,
                   script_s=time.perf_counter() - t_start)
     log(f"    whole script {report['script_s']:.1f} s")
     (out / "report.json").write_text(json.dumps(report, indent=1, default=str))

@@ -21,11 +21,19 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.sddmm import blockwise_topk, hier_topk, l2_normalize, merge_topk, stable_topk
+from ..ops.sddmm import (SEG, blockwise_topk, exclude_, hier_flat, hier_topk, l2_normalize,
+                         merge_topk, padded_rows, pick_from_segments, segment_extrema,
+                         segment_values, select_segments, stable_topk)
 from ..ops.tree_agg import TreeTopo
 from ..parallel.mesh import all_gather
+from ..utils.profiling import count, counting, trace
 
 NEG_INF = float("-inf")
+# row blocks whose selection the fused sweep runs at once: at the TE cell's
+# shape (2048 x 159,232) a group's keys and candidates take ~1 GB beside the
+# extrema's 1.48 GiB, under the 2.7 GiB the block sweep took, and groups of
+# 1, 2, 4 and 8 swept in 468, 345, 289 and 262 ms on an H100
+GROUP = 8
 
 
 def _edge_scores(hn: torch.Tensor, edge_index: torch.Tensor) -> torch.Tensor:
@@ -127,27 +135,81 @@ def _carry(k2: int, dev):
 
 def _sweep(hn, topo: TreeTopo, pos_keep, k2: int, blocks: range, block: int, neg: bool):
     """The row blocks ``blocks`` (of ``block`` rows each) swept in order
-    into fresh carries: (pos carry, neg carry or None). Both sweeps share
-    one similarity matmul per row block. The excluded entries of a block
-    are few and known from the tree's structure (the diagonal, and each
-    child's one out-edge to its parent), so they are set to -inf in place
-    rather than through [block, N] masks; rows past N are -inf whole."""
-    n, b_seed = topo.num_nodes, topo.batch_size
-    e = n - b_seed  # structural edge count
-    dev = hn.device
-    block = min(block, n)
-    hp = torch.nn.functional.pad(hn, (0, 0, 0, -(-n // block) * block - n))
-    local = torch.arange(block, device=dev)
-    valid = topo.edge_mask
+    into fresh carries: (pos carry, neg carry or None). Where N and the
+    block are multiples of ``SEG`` the fused route runs
+    (:func:`_sweep_fused`), else the block-by-block one
+    (:func:`_sweep_blocks`); the same picks either way. While a profiler
+    runs, the counter ``rewire_fused`` counts the blocks the fused route
+    swept over all swept.
 
-    def sweep(s, keep, acc, row0, rid, par, eid, has_edge):
-        """Write the block's exclusions into ``s`` (in place) and merge its
-        top-k into the carry ``acc``."""
-        s[n - row0:] = NEG_INF
-        s[local, rid] = NEG_INF
-        # each row's structural out-edge (rid -> parent) where this graph has
-        # it; elsewhere the diagonal again
-        s[local, torch.where(has_edge & keep[eid], par, rid)] = NEG_INF
+    What keeps the block sweep is the kernels, not the picks: they take
+    whole 128-row tiles only. The fused route's plain versions, with the
+    columns past N padded with -inf to whole segments, pass the JAX-parity
+    tests on unaligned trees as well; one route for every tree would need
+    a column bound and row ranges that start inside a tile in both
+    kernels."""
+    n = topo.num_nodes
+    block = min(block, n)
+    fused = n % SEG == 0 and block % SEG == 0 and not hier_flat(block * n, k2, SEG)
+    if counting():
+        count("rewire_fused", torch.full((len(blocks),), fused))
+    return (_sweep_fused if fused else _sweep_blocks)(hn, topo, pos_keep, k2, blocks, block, neg)
+
+
+def _exclusions(topo: TreeTopo, keep: torch.Tensor) -> torch.Tensor:
+    """Per flat row, its one excluded column beside the diagonal: its
+    structural parent where this graph keeps the row's out-edge, else -1."""
+    n, b_seed = topo.num_nodes, topo.batch_size
+    rid = torch.arange(n, device=keep.device)
+    eid = (rid - b_seed).clamp(0, max(n - b_seed - 1, 0))
+    return torch.where((rid >= b_seed) & keep[eid], topo.parent_of(rid), -1).to(torch.int32)
+
+
+def _sweep_fused(hn, topo: TreeTopo, pos_keep, k2: int, blocks: range, block: int, neg: bool):
+    """:func:`_sweep_blocks`'s carries without a similarity block in
+    memory: the segment extrema of every swept row come from one
+    :func:`segment_extrema` call (``ngt.rewire_sim``), and the chosen
+    segments from :func:`segment_values`; the selection between them is
+    ``hier_topk``'s own two stages, run on ``GROUP`` blocks at once. Each
+    block's picks do not depend on the carry, so merging a group's in block
+    order is merging them block by block (see :func:`merge_carries`). Needs
+    N and ``block`` multiples of ``SEG``, so that every segment of a
+    block's flat view lies in one row."""
+    n, dev = topo.num_nodes, hn.device
+    carries = [_carry(k2, dev)] + ([_carry(k2, dev)] if neg else [])
+    if not len(blocks):
+        return carries[0], (carries[1] if neg else None)
+    excl = [_exclusions(topo, pos_keep)] + ([_exclusions(topo, topo.edge_mask)] if neg else [])
+    hnt = hn.T.contiguous() if dev.type == "cuda" else None
+    with trace("ngt.rewire_sim"):
+        ext = segment_extrema(hn, blocks, block, excl[0], excl[1] if neg else None, hnt)
+    for g in range(0, len(blocks), GROUP):
+        grp = blocks[g:g + GROUP]
+        rows = slice(g * block, (g + len(grp)) * block)
+        picks = [(select_segments(x[rows].view(len(grp), -1), k2), e, sign)
+                 for x, e, sign in zip(ext, excl, (False, True))]
+        row0 = torch.arange(grp.start, grp.stop, device=dev)[:, None] * block
+        for j, (cand, (si, _, _)) in enumerate(zip(segment_values(hn, grp, block, picks, hnt),
+                                                   picks)):
+            v, idx = pick_from_segments(cand, si, block * n, k2)
+            hit = (row0 + torch.div(idx, n, rounding_mode="floor"), idx % n)
+            carries[j] = merge_topk(*carries[j], v.reshape(-1), *(x.reshape(-1) for x in hit),
+                                    k2)
+    return carries[0], (carries[1] if neg else None)
+
+
+def _sweep_blocks(hn, topo: TreeTopo, pos_keep, k2: int, blocks: range, block: int,
+                  neg: bool):
+    """The sweep block by block. Both signs share one similarity matmul per
+    row block. The excluded entries of a block are few and known from the
+    tree's structure (the diagonal, and each child's one out-edge to its
+    parent), so they are set to -inf in place (``exclude_``) rather than
+    through [block, N] masks; rows past N are -inf whole."""
+    n, dev = topo.num_nodes, hn.device
+    hp = padded_rows(hn, block)
+    excl = [_exclusions(topo, pos_keep), _exclusions(topo, topo.edge_mask)]
+
+    def merge(acc, s, row0):
         v, idx = hier_topk(s.reshape(-1), k2)
         return merge_topk(*acc, v, row0 + torch.div(idx, n, rounding_mode="floor"),
                           idx % n, k2)
@@ -155,13 +217,10 @@ def _sweep(hn, topo: TreeTopo, pos_keep, k2: int, blocks: range, block: int, neg
     pos, negs = _carry(k2, dev), (_carry(k2, dev) if neg else None)
     for i in blocks:
         row0 = i * block
-        rid = (row0 + local).clamp(max=n - 1)
-        where = (row0, rid, topo.parent_of(rid), (rid - b_seed).clamp(0, max(e - 1, 0)),
-                 rid >= b_seed)  # rows past n are -inf whole
         sim = hp[row0:row0 + block] @ hn.T
-        if neg:
-            negs = sweep(-sim, valid, negs, *where)  # first: the next sweep writes into sim
-        pos = sweep(sim, pos_keep, pos, *where)
+        if neg:  # first: the pos exclusions are written into sim
+            negs = merge(negs, exclude_(-sim, row0, excl[1]), row0)
+        pos = merge(pos, exclude_(sim, row0, excl[0]), row0)
         del sim
     return pos, negs
 

@@ -13,7 +13,8 @@ themselves:
                          range in the trace and a row of the span table;
 * ``count(name, mask)``— a counter of the True entries of a mask over its
                          size, kept on the mask's device while a profiler
-                         runs;
+                         runs (``counting()`` says whether one does, for a
+                         mask that costs work to build);
 * ``spans`` / ``counts``
   / ``reset``          — the span table and the counters: read, and emptied;
 * ``start_profile`` /
@@ -122,6 +123,11 @@ def trace(name: str):
     profiler session runs; within one, a ``record_function`` range and a
     row of :func:`spans`."""
     return _Span(name) if _profiling() else _OFF
+
+
+def counting() -> bool:
+    """Whether :func:`count` counts: a profiler session runs."""
+    return _profiling()
 
 
 def count(name: str, mask: torch.Tensor) -> None:

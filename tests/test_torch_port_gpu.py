@@ -307,3 +307,148 @@ def test_flat_agg_forms_on_cuda(cuda):
         torch.testing.assert_close(got, cpu[name](), rtol=0, atol=1e-5, msg=name)
     torch.testing.assert_close(card["edge_list"]().cpu(), cpu["structured"](), rtol=0,
                                atol=1e-5)
+
+
+def _rewire_rows(cuda, n: int, d: int, seed: int):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    from noise_gnn_tpu_torch.ops.sddmm import l2_normalize
+
+    return l2_normalize(torch.randn((n, d), generator=g, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [256, 128])
+def test_rewire_similarities_match_cublas(cuda, d):
+    """The extrema kernel's product, written out: bit-equal to the f32
+    ``hp[rows] @ hn.T`` that the block sweep takes from cuBLAS, block by
+    block, and to ``hn @ hn.T`` whole (one FMA chain over k in order)."""
+    from noise_gnn_tpu_torch.ops import sddmm
+
+    n = 128 * 40
+    hn = _rewire_rows(cuda, n, d, d)
+    hp = sddmm.padded_rows(hn, 2048)
+    before = sddmm.launch_counts["sim"]
+    for row0 in range(0, n, 2048):
+        rows = min(2048, n - row0)
+        want = (hp[row0:row0 + 2048] @ hn.T)[:rows]
+        got = sddmm.similarity_rows(hn, row0, rows)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(sddmm.similarity_rows(hn, 0, n).view(torch.int32),
+                       (hn @ hn.T).view(torch.int32))
+    assert sddmm.launch_counts["sim"] == before + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [256, 128])
+def test_rewire_extrema_and_values_match_plain(cuda, d):
+    """``segment_extrema`` (both signs and pos alone, a whole range and one
+    not starting at 0) and ``segment_values`` launch their kernels and are
+    bit-equal to the plain versions on the card, which read cuBLAS's
+    blocks; rows past N -inf. At this shape ([2048, D] x [D, 10,752])
+    cuBLAS's f32 product is itself one FMA chain in order, as the first
+    check asserts; at small shapes it may split k (a [512, 256] x [256,
+    1280] product differs from the chain by a few ulp)."""
+    from noise_gnn_tpu_torch.augment import rewire
+    from noise_gnn_tpu_torch.ops import sddmm
+    from noise_gnn_tpu_torch.ops.tree_agg import TreeTopo
+
+    b, fanouts, block = 512, (5, 3), 2048
+    n = b * 21  # 10,752 rows: 84 tiles; 6 blocks hold 12,288
+    topo = TreeTopo(b, fanouts, torch.rand(n - b, generator=torch.Generator().manual_seed(d))
+                    .to(cuda) < 0.8)
+    hn, k2, _, _, pos_keep = rewire._plan(_rewire_rows(cuda, n, d, d + 1), topo, 0.1)
+    hp = sddmm.padded_rows(hn, block)
+    assert torch.equal(sddmm.similarity_rows(hn, 2048, 2048).view(torch.int32),
+                       (hp[2048:4096] @ hn.T).view(torch.int32))
+    excl = [rewire._exclusions(topo, pos_keep), rewire._exclusions(topo, topo.edge_mask)]
+    nb = -(-n // block)
+    for blocks, neg in ((range(nb), True), (range(1, nb), True), (range(nb), False)):
+        before = dict(sddmm.launch_counts)
+        got = sddmm.segment_extrema(hn, blocks, block, excl[0], excl[1] if neg else None)
+        want = sddmm._extrema_plain(hn, blocks, block, excl[0], excl[1] if neg else None)
+        assert (got[1] is None) == (want[1] is None) == (not neg)
+        for g, w in zip(got, want):
+            if g is not None:
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        picks = [(sddmm.select_segments(x.view(len(blocks), -1), k2), e, s)
+                 for x, e, s in zip(got, excl, (False, True)) if x is not None]
+        vals = sddmm.segment_values(hn, blocks, block, picks)
+        for g, w in zip(vals, sddmm._values_plain(hn, blocks, block, picks)):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert sddmm.launch_counts["extrema"] == before.get("extrema", 0) + 1
+        assert sddmm.launch_counts["values"] == before.get("values", 0) + 1
+    assert bool(torch.isinf(got[0][n:]).all())
+
+
+@pytest.mark.gpu
+def test_rewire_fused_matches_block_sweep_at_cell_shape(cuda, monkeypatch):
+    """``topk_rewire_tree`` at the TE cell's shape (b = 512, fanouts (10, 5,
+    5): 159,232 rows, random f32 rows, D = 256): the fused route, whose
+    kernels ran, and the block sweep give the same topologies, both signs,
+    order included; and so does the pos-only call."""
+    from noise_gnn_tpu_torch.augment import rewire
+    from noise_gnn_tpu_torch.ops import sddmm
+    from noise_gnn_tpu_torch.ops.tree_agg import TreeTopo
+
+    b, fanouts = 512, (10, 5, 5)
+    n = b * 311
+    topo = TreeTopo(b, fanouts, torch.rand(n - b, generator=torch.Generator().manual_seed(5))
+                    .to(cuda) < 0.8)
+    h = torch.randn((n, 256), generator=torch.Generator(device=cuda).manual_seed(5),
+                    device=cuda)
+    for neg in (True, False):
+        before = dict(sddmm.launch_counts)
+        fused = rewire.topk_rewire_tree(h, topo, 0.1, neg=neg)
+        assert sddmm.launch_counts["extrema"] == before.get("extrema", 0) + 1
+        assert sddmm.launch_counts["values"] == before.get("values", 0) + -(-78 // rewire.GROUP)
+        with monkeypatch.context() as m:
+            m.setattr(rewire, "_sweep_fused", rewire._sweep_blocks)
+            plain = rewire.topk_rewire_tree(h, topo, 0.1, neg=neg)
+        assert (fused[1] is None) == (plain[1] is None) == (not neg)
+        for tf, tp in zip(fused, plain):
+            if tf is not None:
+                for a, c in ((tf.edge_mask, tp.edge_mask), (tf.extra_src, tp.extra_src),
+                             (tf.extra_dst, tp.extra_dst), (tf.extra_mask, tp.extra_mask)):
+                    assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_rewire_kernels_refuse(cuda):
+    """Not float32, not contiguous, or rows not whole 128-row tiles: the
+    wrappers raise before any launch."""
+    from noise_gnn_tpu_torch.ops import sddmm
+
+    excl = torch.full((256,), -1, dtype=torch.int32, device=cuda)
+    hn = torch.zeros((256, 8), device=cuda)
+    si = [(torch.zeros((1, 1), dtype=torch.int64, device=cuda), excl, False)]
+    bad = (hn.half(), torch.zeros((256, 16), device=cuda)[:, ::2], hn[:200])
+    for x in bad:
+        with pytest.raises((TypeError, ValueError)):
+            sddmm.segment_extrema(x, range(1), 128, excl)
+        with pytest.raises((TypeError, ValueError)):
+            sddmm.segment_values(x, range(1), 128, si)
+    with pytest.raises(ValueError):
+        sddmm.segment_extrema(hn, range(1), 100, excl)
+    with pytest.raises(ValueError):
+        sddmm.similarity_rows(hn, 64, 128)
+
+
+@pytest.mark.gpu
+def test_topk_keys_kernel_matches_plain(cuda):
+    """``stable_topk``'s int64 keys from the keys kernel, along the last
+    axis of a 1-D and a 2-D array with signed zeros, infinities and ties:
+    bit-equal to the CPU's torch ops; and ``stable_topk`` itself."""
+    from noise_gnn_tpu_torch.ops import sddmm
+
+    rng = np.random.default_rng(21)
+    x = (rng.integers(-4, 5, (3, 70_001)) * 0.25).astype(np.float32)
+    x[rng.random(x.shape) < 0.1] = -0.0
+    x[rng.random(x.shape) < 0.02] = np.inf
+    x[rng.random(x.shape) < 0.02] = -np.inf
+    for a in (torch.from_numpy(x), torch.from_numpy(x[1])):
+        before = sddmm.launch_counts["keys"]
+        assert torch.equal(sddmm.topk_keys(a.to(cuda)).cpu(), sddmm.topk_keys(a))
+        assert sddmm.launch_counts["keys"] == before + 1
+        (cv, ci), (gv, gi) = (sddmm.stable_topk(a.to(d), 777) for d in ("cpu", cuda))
+        assert torch.equal(gi.cpu(), ci) and torch.equal(gv.cpu().view(torch.int32),
+                                                         cv.view(torch.int32))
