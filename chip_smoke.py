@@ -10,7 +10,8 @@ when every phase passed):
    CUDA kernels with ``nvcc`` and the host graph runtime with ``g++``, all
    started together: the SpMM (``noise_gnn_tpu_torch/csrc/spmm.cu``), the
    gather ring (``noise_gnn_tpu_torch/csrc/gather_ring.cu``), the rewire's
-   extrema and values (``noise_gnn_tpu_torch/csrc/rewire_sim.cu``) and
+   extrema and values (``noise_gnn_tpu_torch/csrc/rewire_sim.cu``), the
+   GAT's CSR attention (``noise_gnn_tpu_torch/csrc/gat_attn.cu``) and
    ``noise_gnn_tpu_torch/csrc/graph_runtime.cpp`` (which every CSR of the
    port comes from), and report the build times.
 2. Kernels against their plain versions on the card. SpMM: mean and sum, f32
@@ -327,14 +328,30 @@ when every phase passed):
    The launches of phase 7's contrast run and phase 8's uninterrupted H
    run (both take the fused route at full width), each counted from 0,
    enter the kernels line.
+16. The multi-head GAT's CSR attention (``csrc/gat_attn.cu``, ``run_gat_ns``)
+   on GATConv's self-looped CSR of the full products graph (2,449,029
+   rows, self-loops removed and one added a row), at the ``gat_ns`` pair
+   eval's two calls, 8 heads, bf16: W = 1024 on layer 1's own inputs (the
+   features through both nets' seeded ``w``, their scores) and W = 376 on
+   random rows with scores of spread 3. Each within the tolerance of
+   ``compare`` (fp32 sums and exponentials in another order, one bf16
+   ulp) of the plain version in fp32 and bit-equal to its repeat, then
+   timed (two turns of 10 calls) beside the plain version and its bound
+   (rows read and written once, scores and CSR read once; or the
+   exponentials and multiply-adds at the f32 rate). Then ``main`` on
+   ``config_products_gat.yml``, one co-teaching epoch and its eval, no
+   baseline: the kernel's launches counted from 0 around every pair eval
+   of the run, which must launch it at W = 1024 twice and W = 376 once
+   and the SpMM never; losses finite, validation accuracy above 1/47.
+   Those launches enter the kernels line.
 
 Then it prints one ``{"kernels": [...]}`` line (errors from the full-size
 checks, launches from the main paths; the products rows count phase 3's,
 9b's, 10b's ranks', 12b's ranks' and one-process runs and 14's hard-draw
 run, the arxiv rows
 the CTP, TE, H and CT runs' and phase 11's ranks' and one-process runs',
-the cora rows 9c's and 12c's ranks' and loaded runs; each path's also on
-its own), the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
+the cora rows 9c's and 12c's ranks' and loaded runs, the gat_attn rows
+16's main run; each path's also on its own), the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
 {...}}``. Details go to ``<out>/report.json``.
 """
 
@@ -366,7 +383,8 @@ from noise_gnn_tpu_torch.graph.datasets import load_network
 from noise_gnn_tpu_torch.main import main as port_main
 from noise_gnn_tpu_torch.models import nets
 from noise_gnn_tpu_torch.models.convert import gather_params, params_from_jax, params_to_jax
-from noise_gnn_tpu_torch.ops import gather_ring, sddmm, spmm
+from noise_gnn_tpu_torch.models.layers import gat_scores
+from noise_gnn_tpu_torch.ops import gat_attn, gather_ring, sddmm, spmm
 from noise_gnn_tpu_torch.ops.leaf_agg import fused_leaf_table
 from noise_gnn_tpu_torch.ops.tree_agg import TreeTopo
 from noise_gnn_tpu_torch.parallel import make_dp_ct_step, make_mesh, multihost
@@ -398,6 +416,11 @@ REPLACES = "noise_gnn_tpu/ops/pallas_spmm.py:147"
 GATHER_SOURCE = "noise_gnn_tpu_torch/csrc/gather_ring.cu"
 GATHER_REPLACES = "tools/exp_dma_gather.py:56"
 REWIRE_SOURCE = "noise_gnn_tpu_torch/csrc/rewire_sim.cu"
+GAT_ATTN_SOURCE = "noise_gnn_tpu_torch/csrc/gat_attn.cu"
+GAT_NS_CONFIG = "noise_gnn_tpu_torch/configs/config_products_gat.yml"
+# the CSR attention's calls in products' gat_ns pair eval: (name, W, heads),
+# both nets' heads side by side
+GAT_SHAPES = (("pair layers 1-2", 1024, 8), ("pair layer 3", 376, 8))
 # the main paths' SpMM shapes: (name, F, launches expected per run)
 SHAPES = (("leaf table", 100, 1), ("eval pair", 512, 4), ("eval single", 256, 4))
 CTP_SHAPES = (("arxiv leaf table", 128), ("arxiv eval pair", 512), ("arxiv load eval", 256))
@@ -3219,6 +3242,151 @@ def run_rewire_kernels(dev) -> list[dict]:
     return rows_out
 
 
+def _gat_pair_inputs(op, shape, pair, x, gen):
+    """(h, s_src, s_dst) of one attention call of the pair eval: layer 1's
+    own (the features projected by both nets' ``w``, their scores) at its
+    width, else random bf16 rows and scores of spread 3, which peak the
+    softmax."""
+    name, w, heads = shape
+    n = op.num_rows
+    ps = [p["convs"][0] for p in pair]
+    if w == sum(int(p["w"].shape[1]) for p in ps):
+        h = x @ torch.cat([p["w"] for p in ps], dim=1).to(x.dtype)
+        s_src, s_dst = gat_scores(h, torch.cat([p["att_src"] for p in ps]),
+                                  torch.cat([p["att_dst"] for p in ps]))
+    else:
+        h = torch.randn((n, w), generator=gen, device=x.device).to(torch.bfloat16)
+        s_src, s_dst = (3 * torch.randn((n, heads), generator=gen, device=x.device)
+                        for _ in range(2))
+    return h, s_src.contiguous(), s_dst.contiguous()
+
+
+def run_gat_ns(out: Path, dev) -> tuple[list[dict], dict]:
+    """Phase 16: the CSR attention kernel (``ops/gat_attn.py``) on
+    GATConv's self-looped CSR of the full products graph at the pair eval's
+    two widths, held against the plain version with the tolerance of
+    ``compare`` (fp32 sums and exponentials in another order, one bf16 ulp)
+    and bit-equal to its repeat, then timed beside the plain version; then
+    ``main`` on ``config_products_gat.yml`` (one co-teaching epoch and its
+    eval, no baseline), with the kernel's launches counted from 0 around
+    every pair eval of the run: three a pair (W = 1024 twice, 376 once)."""
+    cfg = load_config(GAT_NS_CONFIG)
+    g = load_network(cfg)
+    csr = g.csr(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op = gat_attn.GatAttn.self_looped(csr)
+    torch.cuda.synchronize()
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    n, e = op.num_rows, int(op.indices.shape[0])
+    sch = op.schedule
+    graph = dict(in_degree=degree_profile(op.indptr), pack_ms=pack_ms,
+                 segments=int(sch.seg_len.shape[0]), split_rows=int(sch.comb_row.shape[0]),
+                 partials=sch.num_partials)
+    log(f"  {g.name} self-looped: N={n} E={e}, in-degree {graph['in_degree']}; "
+        f"{graph['segments']} segments, {graph['split_rows']} rows split into "
+        f"{graph['partials']}; self-loop CSR + schedule on the card {pack_ms:.1f} ms")
+    spec = nets.make_network(cfg, g.num_features, g.num_classes)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    pair = [nets.init_params(gen, spec, dev) for _ in range(2)]
+    x = torch.from_numpy(g.x).to(dev).to(spec.dtype)
+    rtol = sum_rtol(op.indptr)
+    rows = []
+    for shape in GAT_SHAPES:
+        name, w, heads = shape
+        h, s_src, s_dst = _gat_pair_inputs(op, shape, pair, x, gen)
+        got = op(h, s_src, s_dst)
+        repeat_equal = torch.equal(got, op(h, s_src, s_dst))
+        hf = h.float()
+        want = gat_attn.gat_attn_reference(op.indptr, op.indices, hf, s_src, s_dst)
+        mag = gat_attn.gat_attn_reference(op.indptr, op.indices, hf.abs_(), s_src, s_dst)
+        del hf
+        case = dict(graph=f"{g.name} (full, self-looped)", F=w, x="bfloat16", out="bfloat16",
+                    mean=False, heads=heads)
+        case.update(compare(got, want, mag, rtol))
+        case.update(repeat_equal=repeat_equal, ok=case["ok"] and repeat_equal)
+        del got, want, mag
+        torch.cuda.empty_cache()
+        log(f"    {name} W={w} H={heads}: max abs err {case['max_abs_err']:.3e}, err/tol "
+            f"{case['max_err_over_tol']:.3f}, repeat bit-equal {repeat_equal} "
+            f"{'ok' if case['ok'] else 'FAIL'}")
+        if not case["ok"]:
+            raise RuntimeError(f"the GAT attention kernel is out of tolerance: {case}")
+        turns = time_turns({"kernel": lambda: op(h, s_src, s_dst)}, turns=2, reps=10)
+        k_ms = sum(turns["kernel"]) / len(turns["kernel"])
+        p_ms = time_ms(lambda: gat_attn.gat_attn_reference(op.indptr, op.indices, h, s_src,
+                                                           s_dst), reps=1, warm=1)
+        # rows read and written once, both scores, the CSR; exponentials
+        # and multiply-adds at the f32 rate (gnnbench/counts_gat.py's bound)
+        nbytes = 2 * n * w * 2 + 2 * n * heads * 4 + e * 4 + (n + 1) * 8
+        nops = e * heads + 2 * e * w
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+        row = dict(shape=name, W=w, heads=heads, N=n, E=e, dtype="bfloat16", ms=k_ms,
+                   plain_ms=p_ms, turns_ms=turns, bound_ms=max(b_ms, o_ms),
+                   bound_by="bytes" if b_ms >= o_ms else "operations", bytes=nbytes, ops=nops,
+                   graph_stats=graph, check=case)
+        rows.append(row)
+        log(f"  {name} W={w} H={heads} bf16: kernel {k_ms:.3f} ms (turns {turns['kernel']}), "
+            f"plain {p_ms:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
+            f"{nbytes / 1e9:.3f} GB)")
+        del h, s_src, s_dst
+        torch.cuda.empty_cache()
+    del x, op, csr, pair
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg.update(num_runs=1, max_epochs=1, reinit_retries=0, train_type="nalgo",
+               out_dir=str(out / "gat_ns"))
+    seen: list = []
+    pair_fn = FullGraphInference.pair
+
+    def counted_pair(self, *a, **k):
+        gat_attn.launch_counts.clear()
+        res = pair_fn(self, *a, **k)
+        torch.cuda.synchronize()
+        seen.append({int(w): int(c) for w, c in gat_attn.launch_counts.items()})
+        return res
+
+    FullGraphInference.pair = counted_pair
+    try:
+        r = _drive(cfg)
+    finally:
+        FullGraphInference.pair = pair_fn
+    ct = _events(r, "epoch_ct")
+    for ep in ct:
+        log(f"  CT epoch {ep['epoch']}: train {ep['epoch_train_s']:.3f} s, eval "
+            f"{ep['epoch_eval_s']:.3f} s, loss {ep['loss_1']:.4f}/{ep['loss_2']:.4f}, val "
+            f"{ep['val_acc_1']:.4f}/{ep['val_acc_2']:.4f}, test "
+            f"{ep['test_acc_1']:.4f}/{ep['test_acc_2']:.4f}")
+    launches: dict = {}
+    for c in seen:
+        for w, k in c.items():
+            launches[w] = launches.get(w, 0) + k
+    log(f"  main(config) wall {r['wall_s']:.1f} s, peak device memory "
+        f"{r['peak_bytes'] / 2**30:.2f} GiB, {len(seen)} pair evals, gat_attn launches by W "
+        f"{launches}, SpMM launches {r['launches']}")
+    if len(ct) != 1 or not all(math.isfinite(ct[0][k]) for k in ("loss_1", "loss_2")):
+        raise RuntimeError(f"expected one CT epoch with finite losses, got {ct}")
+    if not min(ct[0]["val_acc_1"], ct[0]["val_acc_2"]) > 1 / 47:
+        raise RuntimeError(f"validation accuracy not above 1/47: {ct[0]}")
+    if not seen or any(c != {w: 2 if w == 1024 else 1 for _, w, _ in GAT_SHAPES} for c in seen):
+        raise RuntimeError(f"each pair eval should launch the kernel at W = 1024 twice and "
+                           f"W = 376 once, got {seen}")
+    if r["launches"]:
+        raise RuntimeError(f"gat_ns's path launched the SpMM: {r['launches']}")
+    return rows, dict(config=GAT_NS_CONFIG, wall_s=r["wall_s"], peak_bytes=r["peak_bytes"],
+                      pair_evals=len(seen), launches=launches, ct_epochs=ct)
+
+
+def gat_attn_row(row: dict, launches: int) -> dict:
+    return dict(
+        name=f"gat_attn ({row['shape']}, W={row['W']}, H={row['heads']} {row['dtype']})",
+        route="cuda", source=GAT_ATTN_SOURCE, replaces=None, launches=launches,
+        max_abs_err=row["check"]["max_abs_err"],
+        max_err_over_tol=row["check"]["max_err_over_tol"], ms=row["ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"])
+
+
 def spmm_row(row: dict, launches: int) -> dict:
     return dict(
         name=f"spmm_csr ({row['shape']}, F={row['F']} {row['dtype']})", route="cuda",
@@ -3248,13 +3416,13 @@ def run(out: Path) -> int:
 
     # a fresh checkout has nothing built: the kernels (nvcc) and the host
     # graph runtime (g++), all started together
-    with ThreadPoolExecutor(4) as pool:
-        (lib_s, _), (lib_g, _), (lib_r, _), (_, native_s) = pool.map(
-            timed, (spmm.build, gather_ring.build, sddmm.build, native.build))
+    with ThreadPoolExecutor(5) as pool:
+        (lib_s, _), (lib_g, _), (lib_r, _), (lib_a, _), (_, native_s) = pool.map(
+            timed, (spmm.build, gather_ring.build, sddmm.build, gat_attn.build, native.build))
     build_s = time.perf_counter() - t0
-    log(f"    built {lib_s.name} from {SOURCE}, {lib_g.name} from {GATHER_SOURCE} and "
-        f"{lib_r.name} from {REWIRE_SOURCE} in {build_s:.1f} s (the graph runtime in "
-        f"{native_s:.1f} s beside them)")
+    log(f"    built {lib_s.name} from {SOURCE}, {lib_g.name} from {GATHER_SOURCE}, "
+        f"{lib_r.name} from {REWIRE_SOURCE} and {lib_a.name} from {GAT_ATTN_SOURCE} in "
+        f"{build_s:.1f} s (the graph runtime in {native_s:.1f} s beside them)")
 
     log("[2] kernels against their plain versions")
     cases = check_kernel(dev)
@@ -3383,6 +3551,11 @@ def run(out: Path) -> int:
     log("[15] the rewire's kernels at the TE cell's shape")
     rewire_rows = run_rewire_kernels(dev)
 
+    log("[16] the GAT attention kernel at products' pair-eval shapes, and gat_ns's main path")
+    t16 = time.perf_counter()
+    gat_rows, gat_ns_rep = run_gat_ns(out, dev)
+    log(f"  [16] phase 16 {time.perf_counter() - t16:.1f} s")
+
     kernels = []
     for row in rows:
         by_path = {"co": main_rep["launches"].get(row["F"], 0),
@@ -3428,6 +3601,8 @@ def run(out: Path) -> int:
         kernels.append(dict(row, route="cuda", source=REWIRE_SOURCE, replaces=None,
                             launches=sum(by_path.values()),
                             **{f"launches_{p}": c for p, c in by_path.items()}))
+    for row in gat_rows:
+        kernels.append(gat_attn_row(row, gat_ns_rep["launches"].get(row["W"], 0)))
     report = dict(nvidia_smi=smi, device=kind, count=count, build_s=build_s,
                   checks=cases, gather_checks=gather_cases, small_path=small,
                   small_ctp=small_ctp, small_rewire=small_rewire, small_te=small_te,
@@ -3439,6 +3614,7 @@ def run(out: Path) -> int:
                   epochs_nccl=epochs_nccl, dp_te=dp_te, dp_cut=dp_cut,
                   tp_small=tp_small, tp_products=tp_prod, tp_cora=tp_cora,
                   tools=tools_rep, probes=probes_rep, rewire_kernels=rewire_rows,
+                  gat_attn_timing=gat_rows, gat_ns_path=gat_ns_rep,
                   kernels=kernels,
                   script_s=time.perf_counter() - t_start)
     log(f"    whole script {report['script_s']:.1f} s")

@@ -19,14 +19,23 @@ statistics of all N rows: ``bn1`` on the input (so layer 1 aggregates
 own ``bn1``/``bn2`` and still shares one [N, 2H] SpMM per layer. ``gat``
 is dense attention over the full edge list, with no SpMM; its pair is two
 single passes.
+
+``gat_ns`` runs no SpMM either: each layer projects every node once and
+aggregates with the CSR attention (``ops/gat_attn.py``: the CUDA kernel on
+a card, the plain version on the CPU) over GATConv's self-looped CSR,
+built once per graph. Its pair runs both nets as one net of twice the
+heads: layer 1 is one [N, F] x [F, 2 H C] product, and every layer one
+attention call over both nets' [N, 2 H C] projections.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from ..models.layers import batch_norm
+from ..models.layers import batch_norm, gat_out, gat_scores
 from ..models.nets import NetSpec, _gat_forward
+from ..ops.gat_attn import GatAttn
 from ..ops.scatter import gather_scatter_max
 from ..ops.spmm import Spmm
 
@@ -42,7 +51,8 @@ class FullGraphInference:
         self.num_nodes = int(csr.num_nodes)
         self._csr = csr
         self._x_agg = x_agg
-        self._spmm = None if spec.module == "gat" else Spmm.from_csr(csr)
+        self._spmm = None if spec.module in ("gat", "gat_ns") else Spmm.from_csr(csr)
+        self._attn = GatAttn.self_looped(csr) if spec.module == "gat_ns" else None
         self._edge_index = None  # built on first use by aggr='max' and gat
 
     def _edges(self) -> torch.Tensor:
@@ -75,6 +85,8 @@ class FullGraphInference:
         x = x.to(spec.dtype)
         if spec.module == "gat":
             return _gat_forward(spec, params, x, self._edges(), self.num_nodes, None).float()
+        if spec.module == "gat_ns":
+            return self._gat_ns([params], x)[0]
         x = self._bn(params, "bn1", x)
         for i, p in enumerate(params["convs"]):
             if i == 0 and self._x_agg is not None:
@@ -93,6 +105,8 @@ class FullGraphInference:
         spec = self.spec
         if spec.module == "gat":
             return self(params1, x), self(params2, x)
+        if spec.module == "gat_ns":
+            return tuple(self._gat_ns([params1, params2], x))
         is_gcn = spec.module == "gcn"
         x = x.to(spec.dtype)
         x1, x2 = self._bn(params1, "bn1", x), self._bn(params2, "bn1", x)
@@ -108,6 +122,28 @@ class FullGraphInference:
                 x1 = self._bn(params1, "bn2", torch.relu(x1))
                 x2 = self._bn(params2, "bn2", torch.relu(x2))
         return x1.float(), x2.float()
+
+    def _gat_ns(self, nets: list, x: torch.Tensor) -> list:
+        """Each net's f32 logits; the nets' heads side by side in every
+        product and attention call."""
+        spec = self.spec
+        x = x.to(spec.dtype)
+        dt = x.dtype
+        xs = [x] * len(nets)
+        for i in range(spec.num_layers):
+            ps = [p["convs"][i] for p in nets]
+            if i == 0:
+                h = x @ torch.cat([p["w"] for p in ps], dim=1).to(dt)
+            else:
+                h = torch.cat([xk @ p["w"].to(dt) for xk, p in zip(xs, ps)], dim=1)
+            s_src, s_dst = gat_scores(h, torch.cat([p["att_src"] for p in ps]),
+                                      torch.cat([p["att_dst"] for p in ps]))
+            aggs = self._attn(h, s_src.contiguous(), s_dst.contiguous()).chunk(len(ps), dim=1)
+            last = i == spec.num_layers - 1
+            xs = [gat_out(p, agg, xk, concat=not last) for p, agg, xk in zip(ps, aggs, xs)]
+            if not last:
+                xs = [F.elu(xk) for xk in xs]
+        return [xk.float() for xk in xs]
 
 
 def split_accuracy_fn(split_idx: dict, y: torch.Tensor, num_nodes: int):

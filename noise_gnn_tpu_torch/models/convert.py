@@ -6,7 +6,9 @@ matrices ``[in, out]`` (noise_gnn_tpu/models/layers.py:66-72), plus
 ``"noise"`` [nbr_nodes, in_size] for sagePL, ``"proj"`` {"w", "b"} and
 ``"bnl"`` {"scale", "bias"} for sageFC, ``"act"`` {"alpha"} (a 0-d array)
 for sageH and sageFC, and ``"bn1"``/``"bn2"`` {"scale", "bias"} under
-``use_bn``; GAT's is ``{"layers": [{"w", "a"}, ...]}``. The port keeps the
+``use_bn``; GAT's is ``{"layers": [{"w", "a"}, ...]}``; the port's own
+``gat_ns`` (no JAX counterpart) has ``{"convs": [{"w", "att_src",
+"att_dst", "b", "skip_w", "skip_b"}, ...]}``. The port keeps the
 same structure and the same ``[in, out]`` layout at its public functions
 (``x @ w``), so the mapping is a copy into f32 tensors; nothing is
 transposed. A key outside that structure raises rather than being dropped.
@@ -33,7 +35,8 @@ _BN = {"scale", "bias"}
 _ENTRIES = {"noise": None, "proj": {"w", "b"}, "bnl": _BN, "bn1": _BN, "bn2": _BN,
             "act": {"alpha"}}
 # the layer lists -> the key sets their items may have
-_LISTS = {"convs": ({"w_neigh", "w_root", "b"}, {"w", "b"}), "layers": ({"w", "a"},)}
+_GAT_NS = {"w", "att_src", "att_dst", "b", "skip_w", "skip_b"}  # the port's own module
+_LISTS = {"convs": ({"w_neigh", "w_root", "b"}, {"w", "b"}, _GAT_NS), "layers": ({"w", "a"},)}
 
 
 def _check(params: dict) -> None:
@@ -89,7 +92,8 @@ def whole_widths(params: dict) -> dict:
     _check(params)
     out = {}
     if "convs" in params:
-        out["convs"] = [{k: None if k == "b" else int(layer["b"].shape[0]) for k in layer}
+        out["convs"] = [_gat_ns_widths(layer) if set(layer) == _GAT_NS else
+                        {k: None if k == "b" else int(layer["b"].shape[0]) for k in layer}
                         for layer in params["convs"]]
     if "layers" in params:
         out["layers"] = [{"w": int(layer["a"].shape[0]) // 2, "a": int(layer["a"].shape[1])}
@@ -103,6 +107,14 @@ def whole_widths(params: dict) -> dict:
     if "proj" in params:
         out["proj"]["w"] = int(params["proj"]["b"].shape[0])
     return out
+
+
+def _gat_ns_widths(layer: dict) -> dict:
+    """A gat_ns layer's: ``w`` has the attention vectors' H * C columns,
+    ``skip_w`` its bias's; the rest are never sharded (gat_ns runs in one
+    process)."""
+    return {"w": int(layer["att_src"].numel()), "att_src": None, "att_dst": None, "b": None,
+            "skip_w": int(layer["skip_b"].shape[0]), "skip_b": None}
 
 
 def _tp(mesh: Mesh | None) -> bool:

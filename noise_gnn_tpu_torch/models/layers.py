@@ -16,6 +16,18 @@ Three forms per conv: edge-list (``sage_conv``), dense tree
 (``sage_conv_tree``: [N, K, F] neighbor blocks from the sampler) and
 pre-aggregated (``sage_conv_pre``: the exact-leaf path).
 
+Multi-head GATConv (PyG's defaults: one shared projection, LeakyReLU 0.2
+scores, no attention dropout), with the skip ``Linear`` of PyG's ogbn-products
+example, in the same forms (``models/nets.py`` composes them):
+    h = x @ W  ([n, H * C]),  s_src = <h[., head], att_src[head]>,
+    s_dst = <h[., head], att_dst[head]>  (``gat_scores``),
+    out[i] = sum_{j in N(i) + i} softmax_j(LeakyReLU(s_src[j] + s_dst[i])) h[j]
+             (heads concatenated, or averaged in a last layer) + b
+             + x[i] @ W_skip + b_skip  (``gat_out``);
+the tree form attends over a parent's sampled child slots and the parent
+itself (``gat_tree_attend``), the edge-list and full-graph forms over the
+in-edges with self-loops removed and one added (``ops/gat_attn.py``).
+
 Every weight product goes through :func:`tp_matmul`: the plain product for
 a whole weight, and under tensor parallelism (a ``mesh`` whose model axis
 has M > 1 ranks) Megatron's column-parallel product for a weight of which
@@ -27,6 +39,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.scatter import gather_scatter_max, gather_scatter_mean, gather_scatter_sum
 from ..ops.tree_agg import TreeTopo, tree_gather_scatter
@@ -265,3 +278,74 @@ def prelu_init(device=None) -> dict:
 
 def prelu(params: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, params["alpha"].to(x.dtype) * x)
+
+
+# -------------------------------------------------------- multi-head GAT
+
+
+def gat_conv_init(gen: torch.Generator, in_size: int, heads: int, out_per_head: int,
+                  concat: bool, device=None) -> dict:
+    """A GATConv layer with its skip linear: Glorot ``w`` [in, H * C],
+    ``att_src`` and ``att_dst`` [H, C] (PyG's glorot over [1, H, C]) and
+    ``skip_w`` [in, out] (out = H * C concatenated, else C), drawn in that
+    order; zero ``b`` [out] and ``skip_b`` [out]."""
+    hc = heads * out_per_head
+    out = hc if concat else out_per_head
+    zeros = torch.zeros(out, dtype=torch.float32, device=device)
+    return {"w": glorot(gen, (in_size, hc), device),
+            "att_src": glorot(gen, (heads, out_per_head), device),
+            "att_dst": glorot(gen, (heads, out_per_head), device),
+            "b": zeros,
+            "skip_w": glorot(gen, (in_size, out), device),
+            "skip_b": zeros.clone()}
+
+
+def _att_matrix(att_src: torch.Tensor, att_dst: torch.Tensor, dtype) -> torch.Tensor:
+    """[H * C, 2H]: column h holds att_src[h] on head h's rows, column H + h
+    att_dst[h], zeros elsewhere."""
+    heads = att_src.shape[0]
+    eye = torch.eye(heads, dtype=att_src.dtype, device=att_src.device)
+    a = torch.cat([att_src[:, :, None] * eye[:, None, :], att_dst[:, :, None] * eye[:, None, :]],
+                  dim=2)
+    return a.reshape(-1, 2 * heads).to(dtype)
+
+
+def gat_scores(h: torch.Tensor, att_src: torch.Tensor, att_dst: torch.Tensor):
+    """(s_src, s_dst), each [n, H] float32: every head's projected features
+    against its attention vectors, as one [n, H * C] x [H * C, 2H] product
+    in h's dtype (fp32 accumulation), rounded once."""
+    heads = att_src.shape[0]
+    s = (h @ _att_matrix(att_src, att_dst, h.dtype)).float()
+    return s[:, :heads], s[:, heads:]
+
+
+def gat_tree_attend(h_par: torch.Tensor, s_par, h_child: torch.Tensor, s_child,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Each parent row i of h_par [n, H * C] attends over its f child slots
+    h_child [n * f, H * C] (valid where mask [n, f]) and itself: scores
+    [n, f + 1, H], a masked softmax over the slots in float32, then the
+    weighted sum in h's dtype; [n, H * C]. ``s_par``/``s_child`` are the
+    rows' (s_src, s_dst) from :func:`gat_scores`."""
+    n, f = mask.shape
+    heads = s_par[0].shape[1]
+    s_dst = s_par[1][:, None, :]
+    kids = (s_child[0].view(n, f, heads) + s_dst).masked_fill(~mask[..., None], float("-inf"))
+    e = F.leaky_relu(torch.cat([s_par[0][:, None, :] + s_dst, kids], dim=1), 0.2)
+    a = torch.softmax(e, dim=1).to(h_par.dtype)
+    c = h_par.shape[-1] // heads
+    own = a[:, 0, :, None] * h_par.view(n, heads, c)
+    kids = (a[:, 1:, :, None] * h_child.view(n, f, heads, c)).sum(dim=1)
+    return (own + kids).view(n, heads * c)
+
+
+def gat_out(params: dict, agg: torch.Tensor, x_self: torch.Tensor, concat: bool) -> torch.Tensor:
+    """A GAT layer's output from its attention ``agg`` [n, H * C]: the
+    heads as they are (concatenated) or averaged, plus the bias, plus the
+    skip linear of the row's input; one product with both biases, then
+    one add."""
+    if not concat:
+        heads = params["att_src"].shape[0]
+        agg = agg.view(agg.shape[0], heads, -1).mean(dim=1)
+    dt = x_self.dtype
+    bias = (params["b"] + params["skip_b"]).to(dt)
+    return torch.addmm(bias, x_self, params["skip_w"].to(dt)).add_(agg)

@@ -1,4 +1,4 @@
-"""SAGE, GCN, sagePL, sageH, sageFC, gcn_head and GAT networks: edge-list
+"""SAGE, GCN, sagePL, sageH, sageFC, gcn_head, GAT and gat_ns networks: edge-list
 forward (``apply``) and dense k-hop tree forward (``apply_tree``), with
 params as plain dicts of f32 tensors.
 
@@ -20,6 +20,17 @@ GAT (reference attention.py, dead code there) is dense masked attention
 over the [n, n] adjacency of an edge list; it has no tree forward, so it
 trains on the flat subgraph of a sampled tree (the baseline epoch) and
 evaluates on the full edge list.
+
+``gat_ns`` is the multi-head GAT with skip connections of PyG's
+``examples/ogbn_products_gat.py`` (the OGB leaderboard's "GAT w/NS"):
+``num_layers`` GATConv layers of ``heads`` heads, each ``{"w", "att_src",
+"att_dst", "b", "skip_w", "skip_b"}`` under ``"convs"`` (``layers.
+gat_conv_init``), hidden layers ``heads x hidden_size`` wide with the heads
+concatenated, the last averaging its heads; ELU and dropout between layers.
+Its tree forward attends over each parent's sampled child slots and the
+parent itself, under the span ``ngt.attn``. It has no edge-list forward:
+the full-graph eval runs the CSR attention of ``eval/inference.py``. It
+runs in one process only: a mesh raises.
 
 sagePL (reference sagePL.py) is a SAGE stack with a learned per-node input
 noise: ``apply`` runs a pure pass and a pass on ``x + 0.1 * normalize(noise
@@ -43,10 +54,15 @@ import torch.nn.functional as F
 from ..ops.scatter import fast_take
 from ..ops.tree_agg import TreeTopo
 from ..parallel.mesh import gather_cols
+from ..utils.profiling import trace
 from .layers import (
     batch_norm,
     batch_norm_init,
     dropout,
+    gat_conv_init,
+    gat_out,
+    gat_scores,
+    gat_tree_attend,
     gcn_conv,
     gcn_conv_init,
     gcn_conv_pre,
@@ -62,7 +78,7 @@ from .layers import (
     tp_matmul,
 )
 
-MODULES = ("sage", "gcn", "sagePL", "sageH", "sageFC", "gcn_head", "gat")
+MODULES = ("sage", "gcn", "sagePL", "sageH", "sageFC", "gcn_head", "gat", "gat_ns")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -82,6 +98,7 @@ class NetSpec:
     proj_size: int = 128  # sageFC's projection head width
     aggr: str = "mean"  # SAGE neighbor aggregation: 'mean' | 'max'
     compute_dtype: str = "float32"
+    heads: int = 1  # gat_ns's attention heads a layer
 
     def __post_init__(self):
         if self.module not in MODULES:
@@ -113,6 +130,7 @@ def make_network(config: dict, in_size: int, out_size: int, nbr_nodes: int = 1) 
         nbr_nodes=nbr_nodes,
         compute_dtype=str(config.get("compute_dtype", "float32")),
         aggr=str(config.get("aggr", "mean")),
+        heads=int(config.get("heads", 1)),
     )
 
 
@@ -121,6 +139,8 @@ def init_params(gen: torch.Generator, spec: NetSpec, device=None) -> dict:
     drawn from ``gen`` on ``device``; unit-scale, zero-bias batch norms."""
     if spec.module == "gat":
         return _gat_init(gen, spec, device)
+    if spec.module == "gat_ns":
+        return _gat_ns_init(gen, spec, device)
     init = gcn_conv_init if spec.module == "gcn" else sage_conv_init
     params = {"convs": [init(gen, fin, fout, device) for fin, fout in spec.layer_sizes()]}
     if spec.use_bn:
@@ -232,6 +252,10 @@ def apply(spec: NetSpec, params: dict, x: torch.Tensor, edge_index, *,
     x = x.to(spec.dtype)
     if spec.module == "gat":
         return {"logits": _gat_forward(spec, params, x, edge_index, n, edge_mask, mesh).float()}
+    if spec.module == "gat_ns":
+        raise ValueError("module 'gat_ns' has no edge-list forward: it trains on dense trees "
+                         "(apply_tree) and evaluates through eval/inference.py's "
+                         "FullGraphInference")
     if mesh is not None and not isinstance(edge_index, TreeTopo):
         raise ValueError("a flat forward under a mesh takes the rank's flat subgraph as a "
                          "TreeTopo")
@@ -291,6 +315,9 @@ def apply_tree(spec: NetSpec, params: dict, xs: list[torch.Tensor],
             "module 'gat' has no tree forward: the JAX package trains it only in the "
             "baseline epoch (the edge-list forward on the flat subgraph), and its "
             "co-teaching step fails there, so the port refuses it too")
+    if spec.module == "gat_ns":
+        return {"logits": _gat_ns_tree(spec, params, xs, masks, fanouts, train, gen, leaf_agg,
+                                       mesh).float()}
     exact = leaf_agg is not None
     if exact and spec.module == "gcn_head":
         raise ValueError("exact-leaf mode unsupported for module 'gcn_head'")
@@ -370,3 +397,86 @@ def _gat_forward(spec, params, x, edge_index, num_nodes, edge_mask, mesh=None):
         if i != spec.num_layers - 1:
             x = F.elu(x)
     return x
+
+
+# ----------------------------------------------------------------- gat_ns
+
+
+def _gat_ns_dims(spec: NetSpec) -> list[tuple[int, int, bool]]:
+    """(input width, width a head, heads concatenated) of each layer."""
+    wide = spec.heads * spec.hidden_size
+    return [(spec.in_size if i == 0 else wide,
+             spec.out_size if i == spec.num_layers - 1 else spec.hidden_size,
+             i != spec.num_layers - 1) for i in range(spec.num_layers)]
+
+
+def _gat_ns_init(gen: torch.Generator, spec: NetSpec, device=None) -> dict:
+    return {"convs": [gat_conv_init(gen, fin, spec.heads, c, concat, device)
+                      for fin, c, concat in _gat_ns_dims(spec)]}
+
+
+def _gat_ns_alone(spec: NetSpec, mesh) -> None:
+    if mesh is not None:
+        raise ValueError("module 'gat_ns' runs in one process: sharding it over a mesh "
+                         "(data or tensor parallelism) is not supported")
+    if spec.use_bn:
+        raise ValueError("module 'gat_ns' has no batch norm (use_bn)")
+
+
+def _gat_ns_tree(spec, params, xs, masks, fanouts, train, gen, leaf_agg, mesh):
+    """Dense tree forward on the tree's rows flat (depth 0 first, each depth
+    child-major): at layer i the rows of depths 0 .. L - i are projected
+    in one product (they serve as parents and as children), and the
+    parents of each run of depths with one fanout attend over their child
+    slots and themselves at once (a run's children are the rows after its
+    parents' depth, in order). ELU, then one dropout mask per depth array,
+    shallowest first, between layers."""
+    _gat_ns_alone(spec, mesh)
+    if leaf_agg is not None:
+        raise ValueError("exact-leaf mode unsupported for module 'gat_ns' (its aggregate "
+                         "depends on the weights)")
+    L = spec.num_layers
+    if len(xs) != L + 1:
+        raise ValueError(f"need {L + 1} depth arrays, got {len(xs)}")
+    sizes = [int(x.shape[0]) for x in xs]
+    base = [sum(sizes[:d]) for d in range(L + 2)]
+    mask = torch.cat(masks[1:])  # the child slots, flat from depth 1
+    x = torch.cat([x.to(spec.dtype) for x in xs])
+    for i, p in enumerate(params["convs"]):
+        h = x[:base[L - i + 1]] @ p["w"].to(x.dtype)
+        with trace("ngt.attn"):
+            s_src, s_dst = gat_scores(h, p["att_src"], p["att_dst"])
+            aggs = []
+            for lo, hi in _fanout_runs(fanouts[:L - i]):
+                par, kid = slice(base[lo], base[hi]), slice(base[lo + 1], base[hi + 1])
+                f = fanouts[lo]
+                aggs.append(gat_tree_attend(
+                    h[par], (s_src[par], s_dst[par]), h[kid], (s_src[kid], s_dst[kid]),
+                    mask[base[lo + 1] - sizes[0]:base[hi + 1] - sizes[0]].view(-1, f)))
+            agg = aggs[0] if len(aggs) == 1 else torch.cat(aggs)
+        last = i == L - 1
+        x = gat_out(p, agg, x[:base[L - i]], concat=not last)
+        if not last:
+            x = _dropout_depths(gen, F.elu(x), sizes[:L - i], spec.dropout, train)
+    return x
+
+
+def _fanout_runs(fanouts) -> list[tuple[int, int]]:
+    """[lo, hi) ranges of parent depths that share one fanout."""
+    runs, lo = [], 0
+    for d in range(1, len(fanouts) + 1):
+        if d == len(fanouts) or fanouts[d] != fanouts[lo]:
+            runs.append((lo, d))
+            lo = d
+    return runs
+
+
+def _dropout_depths(gen, x: torch.Tensor, sizes, rate: float, train: bool) -> torch.Tensor:
+    """``layers.dropout`` of each depth array of the flat rows ``x``, each
+    mask drawn in its own call, shallowest first, then applied at once."""
+    if not train or rate <= 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    u = torch.cat([torch.rand((n, x.shape[1]), generator=gen, device=x.device) for n in sizes])
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+

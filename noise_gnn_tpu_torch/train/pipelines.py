@@ -150,6 +150,10 @@ class BasePipeline:
             raise ValueError(f"{world} ranks not divisible by model_parallel={mp}")
         # the (data, model) grid over the ranks (parallel/mesh.py), or None
         self.mesh = make_mesh(model_parallel=mp) if want_dp and world > 1 else None
+        if self.mesh is not None and "gat_ns" in (config.get("module"),
+                                                  config.get("module_compare")):
+            raise ValueError(f"module 'gat_ns' runs in one process, not on {world} ranks: "
+                             "sharding it (data or tensor parallelism) is not supported")
         self.config = config
         self.device = device_of(config)
         self.rng = np.random.default_rng(int(config.get("seed", 0)))
@@ -349,7 +353,7 @@ class BasePipeline:
         Under ``use_bn`` layer 1 aggregates ``bn1(x)``, which changes with
         the params, so no table applies and the SpMM runs at every layer
         (JAX package pipelines.py:444-463)."""
-        if spec.use_bn:
+        if spec.use_bn or spec.module == "gat_ns":
             return FullGraphInference(spec, self.data.csr)
         f = self.data.x.shape[-1]
         x_agg = self._fused_table(self._agg_kind(spec))[:, f:]
@@ -357,10 +361,10 @@ class BasePipeline:
 
     def _logits_fns(self, spec):
         """(logits, logits_pair) of params on the whole graph: the SpMM
-        inference for the conv-stack modules, and for the others
-        (gcn_head, gat) the edge-list forward over the graph's edge list, as
-        the JAX package evaluates them."""
-        if spec.module in STACK_MODULES:
+        inference for the conv-stack modules, the CSR attention inference
+        for gat_ns, and for the others (gcn_head, gat) the edge-list forward
+        over the graph's edge list, as the JAX package evaluates them."""
+        if spec.module in STACK_MODULES or spec.module == "gat_ns":
             infer = self._make_infer(spec)
             return (lambda p: infer(p, self.data.x),
                     lambda p1, p2: infer.pair(p1, p2, self.data.x))

@@ -12,7 +12,8 @@ backward, optimizer step. Per-step metrics are added into one device
 tensor, so an epoch syncs with the host once, when the caller reads them.
 The co-teaching and TE steps and their phases (sample, forward, rewire,
 backward, optimizer) are spans of ``utils/profiling.py::trace`` named
-``ngt.*``, which record only while a profiler session runs.
+``ngt.*``, which record only while a profiler session runs (a gat_ns
+net's tree attention is one more, ``ngt.attn``, inside the forward).
 
 Every epoch also runs data-parallel, given a ``mesh`` (``parallel/mesh.py``;
 the JAX package's ``epoch_jit(mesh=...)``): each rank samples and forwards

@@ -1,5 +1,5 @@
-"""Tests of the port that need a CUDA card: the CUDA SpMM and the
-gather-ring kernel against their plain versions, the main path on a small
+"""Tests of the port that need a CUDA card: the CUDA SpMM, the gather-ring
+kernel and the GAT attention kernel against their plain versions, the main path on a small
 graph, the rewire's top-k and the sorted segment sum against the CPU, and
 ``tools/bench_spmm.py``'s legs at a small shape.
 They skip where no card is visible. This file imports neither JAX nor the JAX package, so on a card
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from noise_gnn_tpu_torch.graph.containers import CSRGraph
+from noise_gnn_tpu_torch.ops import gat_attn
 from noise_gnn_tpu_torch.ops import gather_ring as gr
 from noise_gnn_tpu_torch.ops import spmm
 
@@ -452,3 +453,67 @@ def test_topk_keys_kernel_matches_plain(cuda):
         (cv, ci), (gv, gi) = (sddmm.stable_topk(a.to(d), 777) for d in ("cpu", cuda))
         assert torch.equal(gi.cpu(), ci) and torch.equal(gv.cpu().view(torch.int32),
                                                          cv.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,width,heads", [
+    (torch.bfloat16, 1024, 8),  # the products pair's layers 1-2: 8 heads of 128
+    (torch.bfloat16, 376, 8),  # layer 3: 8 heads of 47, vectors across heads
+    (torch.bfloat16, 188, 4),  # a single net's layer 3: 8-byte vectors
+    (torch.float32, 512, 4),
+    (torch.float32, 2048, 16),  # two column passes, 16 heads
+    (torch.float32, 33, 3),  # scalar loads
+])
+def test_gat_attn_kernel_matches_plain(cuda, dtype, width, heads):
+    """On GATConv's self-looped CSR of a graph with existing self-loops and
+    two rows of products' largest in-degree (7,411, split into 29 segments
+    of ``SEG_EDGES``): within max(1e-5, 4 sqrt(deg) 2^-24) of the weighted
+    sum of |x| of the plain version (fp32 sums and exponentials in another
+    order), plus one bf16 ulp for bf16; every call one counted launch, and
+    bit-equal to its repeat."""
+    rng = np.random.default_rng(width)
+    n = 20011
+    dst = np.concatenate([rng.integers(0, n - 500, 200_000), np.repeat([17, 4001], 7411),
+                          np.arange(0, 300)])
+    src = np.concatenate([rng.integers(0, n, dst.shape[0] - 300), np.arange(0, 300)])
+    csr = CSRGraph.from_coo(np.stack([src, dst]).astype(np.int32), n, cuda)
+    op = gat_attn.GatAttn.self_looped(csr)
+    assert {17, 4001} <= set(op.schedule.comb_row.tolist())
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    x = torch.randn((n, width), generator=gen, device=cuda).to(dtype)
+    s_src, s_dst = (3 * torch.randn((n, heads), generator=gen, device=cuda) for _ in range(2))
+    want = gat_attn.gat_attn_reference(op.indptr, op.indices, x.float(), s_src, s_dst)
+    mag = gat_attn.gat_attn_reference(op.indptr, op.indices, x.float().abs(), s_src, s_dst)
+    before = gat_attn.launch_counts[width]
+    got = op(x, s_src, s_dst)
+    again = op(x, s_src, s_dst)
+    torch.cuda.synchronize()
+    assert gat_attn.launch_counts[width] == before + 2 and got.dtype == dtype
+    assert torch.equal(got, again)
+    deg = (op.indptr[1:] - op.indptr[:-1]).float()[:, None]
+    tol = torch.clamp(4 * deg.sqrt() * 2.0 ** -24, min=1e-5) * mag
+    if dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(want)
+    err = (got.float() - want).abs()
+    assert bool((err <= tol).all()), float((err / tol.clamp(min=1e-30)).max())
+
+
+@pytest.mark.gpu
+def test_gat_attn_kernel_rows_without_edges(cuda):
+    """A CSR without the self-loops: rows without in-edges give 0, the rest
+    agree with the plain version."""
+    n = 3000
+    rng = np.random.default_rng(5)
+    dst = rng.integers(0, n // 2, 20_000)
+    src = rng.integers(0, n, dst.shape[0])
+    csr = CSRGraph.from_coo(np.stack([src, dst]).astype(np.int32), n, cuda)
+    op = gat_attn.GatAttn(csr.indptr, csr.indices)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((n, 256), generator=gen, device=cuda)
+    s_src, s_dst = (torch.randn((n, 4), generator=gen, device=cuda) for _ in range(2))
+    got = op(x, s_src, s_dst)
+    torch.cuda.synchronize()
+    empty = (csr.indptr[1:] - csr.indptr[:-1]) == 0
+    assert bool(empty.any()) and float(got[empty].abs().max()) == 0.0
+    want = gat_attn.gat_attn_reference(op.indptr, op.indices, x, s_src, s_dst)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
