@@ -344,6 +344,26 @@ when every phase passed):
    of the run, which must launch it at W = 1024 twice and W = 376 once
    and the SpMM never; losses finite, validation accuracy above 1/47.
    Those launches enter the kernels line.
+17. The co-teaching step as a CUDA graph (``run_ct_graph``,
+   ``train/step_graph.py``): from one generator state and one set of
+   weights, 5 eager steps (``steps._ct_step``) against 5 steps of
+   ``steps.ct_step`` (2 eager on the side stream, then the capture and
+   its replay, then replays) at ``config_products.yml`` (SAGE, exact
+   leaf) and ``config_products_gat.yml`` (gat_ns) on the full products
+   graph, bf16, on the epoch's first batches: whether every step's
+   :data:`CT_METRICS`, the params and Adam's moments are bit-equal, and
+   where not, the gaps (the params' change against the eager change, per
+   leaf, as the benchmark's ``update`` reading; the metrics); the first
+   two steps must be bit-equal. The same against eager steps whose Adam
+   turns ``capturable`` where the graph's does, before step 3. Then 200
+   steps of each, in turns of 50, timed by CUDA events between call
+   starts (p50, p95) and the host clock; the device kernels, host ops
+   and launches a step under ``torch.profiler`` (eager and replayed),
+   and the span table and counters the replays recorded: every
+   span of the eager step, one call each a step, and ``ct_graphed`` 100%.
+   Then the same 5 against 5 on a random graph of 4,000 nodes at small
+   widths for the step's other forms (SAGE without the exact leaf, with
+   ``use_bn``, CoDis, ``gcn_head``, gat_ns, f32), each replayed.
 
 Then it prints one ``{"kernels": [...]}`` line (errors from the full-size
 checks, launches from the main paths; the products rows count phase 3's,
@@ -362,6 +382,7 @@ import copy
 import dataclasses
 import gc
 import inspect
+import itertools
 import json
 import math
 import os
@@ -369,6 +390,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -394,7 +416,7 @@ from noise_gnn_tpu_torch.tools import (bench_scaling, bench_spmm, bench_trainste
                                        calibrate_synthetic, evidence, exp_ctp_step,
                                        exp_flat_agg, gather_probe, probe_hard_draw,
                                        profile_step)
-from noise_gnn_tpu_torch.train import pipelines, steps
+from noise_gnn_tpu_torch.train import pipelines, step_graph, steps
 from noise_gnn_tpu_torch.train.pipelines import BasePipeline, PipelineCO, PipelineS
 from noise_gnn_tpu_torch.utils.config import load_config
 from noise_gnn_tpu_torch.utils.profiling import (FP32_OPS_PER_S, HBM_BYTES_PER_S, start_profile,
@@ -3397,6 +3419,229 @@ def spmm_row(row: dict, launches: int) -> dict:
         bound_by=row["bound_by"], library_ms=row["library_ms"])
 
 
+# ------------------------------------------------------------------ phase 17
+
+CT_GRAPH_STEPS = 5  # phase 17: steps from one start, eager and graphed
+CT_GRAPH_TIMED = 50  # steps a turn of phase 17's timing, four turns
+
+
+def _ct_steps(step, spec, init, data, batches, fr, fanouts, make_opt, exact, dev,
+              algo="coteaching", capturable_at=None) -> dict:
+    """``step`` (``steps.ct_step`` or the eager ``steps._ct_step``) on
+    ``batches`` from the weights ``init`` and generator seed 17, the
+    optimizers switched to ``capturable`` before step ``capturable_at``:
+    the per-step metrics, both states and the generator."""
+    states = [steps.state_from_params(
+        {k: copy.deepcopy(v) for k, v in p.items()}, make_opt) for p in init]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    mets = []
+    for k, (s, m) in enumerate(batches):
+        if k == capturable_at:
+            for st in states:
+                step_graph.capturable(st.opt)
+        mets.append(step(spec, *states, data, s, m, gen, fr, fanouts, algo, 0.1, exact))
+    return dict(mets=torch.stack(mets), states=states, gen=gen)
+
+
+def _leaves_of(states) -> list[torch.Tensor]:
+    return [p.detach() for s in states for p in nets.parameters(s.params)]
+
+
+def _graph_gaps(eager: dict, graphed: dict, init) -> dict:
+    """Whether the graphed run equals the eager one bit for bit, step by
+    step and in the params and moments at the end; and the gaps where not:
+    each leaf's change against the eager change (norms), the metrics'
+    largest relative difference."""
+    e_leaves, g_leaves = _leaves_of(eager["states"]), _leaves_of(graphed["states"])
+    i_leaves = [p for q in init for p in nets.parameters(q)]
+    step_equal = [bool(torch.equal(a, b)) for a, b in zip(eager["mets"], graphed["mets"])]
+    params_equal = all(torch.equal(a, b) for a, b in zip(e_leaves, g_leaves))
+    moments_equal = all(
+        torch.equal(se.opt.state[a][k], sg.opt.state[b][k])
+        for se, sg in zip(eager["states"], graphed["states"])
+        for a, b in zip(nets.parameters(se.params), nets.parameters(sg.params))
+        for k in ("exp_avg", "exp_avg_sq"))
+    update = max(float(torch.linalg.vector_norm((g - e).float()))
+                 / max(float(torch.linalg.vector_norm((e - i).float())), 1e-30)
+                 for e, g, i in zip(e_leaves, g_leaves, i_leaves))
+    mets = float(((graphed["mets"] - eager["mets"]).abs()
+                  / eager["mets"].abs().clamp(min=1e-30)).max())
+    return dict(step_equal=step_equal, params_equal=params_equal, moments_equal=moments_equal,
+                update_gap=update, metrics_rel_gap=mets,
+                gen_equal=bool(torch.equal(eager["gen"].get_state(), graphed["gen"].get_state())))
+
+
+def _step_times(fn, n: int) -> dict:
+    """``n`` calls of ``fn`` back to back: CUDA events between call starts
+    (ms, p50 and p95) and the host clock to the last call's end."""
+    torch.cuda.synchronize()
+    starts = []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        starts.append(ev)
+        fn()
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = sorted(a.elapsed_time(b) for a, b in zip(starts, starts[1:] + [end]))
+    return dict(p50_ms=ms[len(ms) // 2], p95_ms=ms[int(0.95 * (len(ms) - 1))],
+                wall_ms=wall * 1e3 / n)
+
+
+def _device_ops(fn, n: int) -> dict:
+    """Device operations (kernels, copies, fills), host ops and launches
+    (the host's calls of the CUDA runtime that start device work: kernel
+    and graph launches, copies, fills) a call of ``fn`` under
+    ``torch.profiler``, over ``n`` calls; the span table and counters
+    those calls recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from noise_gnn_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = prof.profiler.kineto_results.events()
+    dev_ops = sum(e.device_type() == DeviceType.CUDA for e in ev)
+    host_ops = sum(e.device_type() == DeviceType.CPU for e in ev)
+    launches = sum(e.device_type() == DeviceType.CPU and e.name().startswith("cu")
+                   and any(w in e.name() for w in ("Launch", "Memcpy", "Memset")) for e in ev)
+    tab, cnt = profiling.spans(), profiling.counts()
+    profiling.reset()
+    return dict(device_ops=dev_ops / n, host_ops=host_ops / n, launches=launches / n,
+                spans={k: v["calls"] / n for k, v in tab.items()},
+                span_ms={k: v["ms"] / n for k, v in tab.items()},
+                counts={k: 100.0 * v["hits"] / max(v["slots"], 1) for k, v in cnt.items()})
+
+
+def _ct_graph_case(name, spec, init, data, batches, fr, fanouts, make_opt, exact, dev,
+                   algo="coteaching", timed=False) -> dict:
+    eager = _ct_steps(steps._ct_step, spec, init, data, batches, fr, fanouts, make_opt, exact,
+                      dev, algo)
+    graphed = _ct_steps(steps.ct_step, spec, init, data, batches, fr, fanouts, make_opt, exact,
+                        dev, algo)
+    with warnings.catch_warnings():  # capturable Adam stepping eagerly
+        warnings.simplefilter("ignore")
+        eager_cap = _ct_steps(steps._ct_step, spec, init, data, batches, fr, fanouts, make_opt,
+                              exact, dev, algo, capturable_at=step_graph.WARM)
+    case = dict(name=name, **_graph_gaps(eager, graphed, init),
+                vs_capturable_eager=_graph_gaps(eager_cap, graphed, init))
+    del eager_cap
+    graph = steps.ct_graph(spec, *graphed["states"], data, *batches[0], graphed["gen"],
+                           fanouts, algo, 0.1, exact, None)
+    case["replayed"] = graph is not None and graph.graph is not None
+    log(f"    {name}: steps bit-equal {case['step_equal']}, params {case['params_equal']}, "
+        f"moments {case['moments_equal']}, generator {case['gen_equal']}; update gap "
+        f"{case['update_gap']:.3e}, metrics {case['metrics_rel_gap']:.3e}; replayed "
+        f"{case['replayed']}; against eager steps with capturable Adam from step "
+        f"{step_graph.WARM + 1}: {case['vs_capturable_eager']}")
+    if not (all(case["step_equal"][:2]) and case["gen_equal"] and case["replayed"]):
+        raise RuntimeError(f"phase 17 {name}: the graphed steps' warm-up differs from the eager "
+                           f"steps, the draws moved, or no graph replayed: {case}")
+    if not timed:
+        return case
+    turns = {"eager": [], "graphed": []}
+    for mode, run in (("eager", eager), ("graphed", graphed)):
+        step = steps._ct_step if mode == "eager" else steps.ct_step
+        it = itertools.count()
+
+        def one(step=step, run=run, it=it):
+            s, m = batches[next(it) % len(batches)]
+            step(spec, *run["states"], data, s, m, run["gen"], fr, fanouts, algo, 0.1, exact)
+
+        run["one"] = one
+    for _ in range(2):
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            turns[mode].append(_step_times((eager if mode == "eager" else graphed)["one"],
+                                           CT_GRAPH_TIMED))
+    for mode in turns:
+        p50 = sorted(t["p50_ms"] for t in turns[mode])
+        case[mode] = dict(turns=turns[mode], p50_ms=p50[len(p50) // 2],
+                          ops=_device_ops((eager if mode == "eager" else graphed)["one"], 10))
+        ops = case[mode]["ops"]
+        log(f"    {name} {mode}: p50 between call starts {[round(t['p50_ms'], 3) for t in turns[mode]]} "
+            f"ms, p95 {[round(t['p95_ms'], 3) for t in turns[mode]]}, host "
+            f"{[round(t['wall_ms'], 3) for t in turns[mode]]} ms a step; {ops['device_ops']:.0f} "
+            f"device ops, {ops['host_ops']:.0f} host ops and {ops['launches']:.0f} launches a "
+            f"step; spans {ops['spans']}; "
+            f"counters {ops['counts']}")
+    g_ops, e_ops = case["graphed"]["ops"], case["eager"]["ops"]
+    if g_ops["counts"].pop("ct_graphed", None) != 100.0:
+        raise RuntimeError(f"phase 17 {name}: ct_graphed reads {g_ops['counts']} replayed")
+    if g_ops["spans"] != e_ops["spans"] or g_ops["counts"] != e_ops["counts"]:
+        raise RuntimeError(f"phase 17 {name}: the replays' spans or counters differ from the "
+                           f"eager steps': {g_ops['spans']} / {e_ops['spans']}")
+    return case
+
+
+def run_ct_graph(out: Path, dev) -> dict:
+    """Phase 17: the co-teaching step replayed as one CUDA graph against
+    the eager step, at the products configurations and at small widths."""
+    rep = {}
+    for name, path in (("sage products", CONFIG), ("gat_ns products", GAT_NS_CONFIG)):
+        cfg = load_config(path)
+        cfg.update(out_dir=str(out / "p17"), device=str(dev))
+        pipe = PipelineCO(cfg)
+        spec = pipe.spec_for()
+        data = pipe.data_for(spec)
+        seeds, masks = pipe.epoch_seed_matrix(pipe.split_idx["train"],
+                                              int(cfg["batch_size"]))
+        batches = list(zip(seeds, masks))[:CT_GRAPH_STEPS]
+        init = [nets.init_params(torch.Generator(device=dev).manual_seed(k), spec, dev)
+                for k in (1, 2)]
+        fr = torch.tensor(0.36, dtype=torch.float32, device=dev)
+        rep[name] = _ct_graph_case(name, spec, init, data, batches, fr, tuple(pipe.fanouts),
+                                   pipe.make_optimizer, pipe.exact_leaf_on(spec), dev,
+                                   timed=True)
+        del pipe, data
+        gc.collect()
+        torch.cuda.empty_cache()
+    rep["small"] = _ct_graph_small(dev)
+    return rep
+
+
+def _ct_graph_small(dev) -> list[dict]:
+    """Phase 17's small cases: the step's other forms on a random graph."""
+    rng = np.random.default_rng(17)
+    n, f, c, b = 4000, 64, 10, 64
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, c, n)).to(dev)
+    yhn = torch.where(torch.from_numpy(rng.random(n) < 0.3).to(dev),
+                      torch.from_numpy(rng.integers(0, c, n)).to(dev), y)
+    csr = CSRGraph.from_coo(rng.integers(0, n, (2, 40_000)).astype(np.int32), n, dev)
+    data = steps.GraphData(x, y, yhn, y == yhn, csr)
+    leaf = dataclasses.replace(data, leaf_agg=fused_leaf_table(x, csr))
+    perm = torch.from_numpy(rng.permutation(n)).to(dev)
+    mask = torch.ones(b, dtype=torch.bool, device=dev)
+    mask[-5:] = False
+    batches = [(perm[k * b:(k + 1) * b], mask) for k in range(CT_GRAPH_STEPS)]
+    fr = torch.tensor(0.3, device=dev)
+    base = dict(in_size=f, hidden_size=64, out_size=c, num_layers=2, dropout=0.5)
+    cases = (("sage exact leaf", dict(module="sage", num_layers=3), (10, 5, 5), leaf, "coteaching"),
+             ("sage", dict(module="sage"), (10, 5), data, "coteaching"),
+             ("sage use_bn", dict(module="sage", use_bn=True), (10, 5), data, "coteaching"),
+             ("sage codi", dict(module="sage"), (10, 5), data, "codi"),
+             ("gcn_head", dict(module="gcn_head", num_layers=1), (10,), data, "coteaching"),
+             ("gat_ns", dict(module="gat_ns", heads=2, hidden_size=16), (5, 5), data,
+              "coteaching"))
+    small = []
+    for name, kw, fanouts, d, algo in cases:
+        spec = nets.NetSpec(**{**base, **kw})
+        init = [nets.init_params(torch.Generator(device=dev).manual_seed(k), spec, dev)
+                for k in (3, 4)]
+        small.append(_ct_graph_case(name, spec, init, d, batches, fr, fanouts,
+                                    lambda p: torch.optim.Adam(p, lr=1e-2),
+                                    d.leaf_agg is not None, dev, algo))
+    return small
+
+
 def run(out: Path) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3556,6 +3801,11 @@ def run(out: Path) -> int:
     gat_rows, gat_ns_rep = run_gat_ns(out, dev)
     log(f"  [16] phase 16 {time.perf_counter() - t16:.1f} s")
 
+    log("[17] the co-teaching step as one CUDA graph against the eager step")
+    t17 = time.perf_counter()
+    ct_graph_rep = run_ct_graph(out, dev)
+    log(f"  [17] phase 17 {time.perf_counter() - t17:.1f} s")
+
     kernels = []
     for row in rows:
         by_path = {"co": main_rep["launches"].get(row["F"], 0),
@@ -3614,7 +3864,7 @@ def run(out: Path) -> int:
                   epochs_nccl=epochs_nccl, dp_te=dp_te, dp_cut=dp_cut,
                   tp_small=tp_small, tp_products=tp_prod, tp_cora=tp_cora,
                   tools=tools_rep, probes=probes_rep, rewire_kernels=rewire_rows,
-                  gat_attn_timing=gat_rows, gat_ns_path=gat_ns_rep,
+                  gat_attn_timing=gat_rows, gat_ns_path=gat_ns_rep, ct_graph=ct_graph_rep,
                   kernels=kernels,
                   script_s=time.perf_counter() - t_start)
     log(f"    whole script {report['script_s']:.1f} s")

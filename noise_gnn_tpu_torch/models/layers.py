@@ -140,8 +140,7 @@ def sage_conv(params: dict, x: torch.Tensor, edge_index: torch.Tensor,
 
 def _tree_agg(x_neigh, neigh_mask, aggr):
     if aggr == "max":
-        neg = torch.tensor(float("-inf"), dtype=x_neigh.dtype, device=x_neigh.device)
-        agg = torch.where(neigh_mask[..., None], x_neigh, neg).amax(dim=1)
+        agg = torch.where(neigh_mask[..., None], x_neigh, float("-inf")).amax(dim=1)
         return torch.where(torch.isfinite(agg), agg, torch.zeros_like(agg))
     m = neigh_mask.to(x_neigh.dtype)[..., None]
     count = m.sum(dim=1).clamp(min=1.0)
@@ -241,7 +240,7 @@ def batch_norm(params: dict, x: torch.Tensor, eps: float = 1e-5, mesh=None) -> t
         mean = sum_ranks(mesh, xf.sum(dim=0, keepdim=True)) / n
         var = sum_ranks(mesh, (xf - mean).square().sum(dim=0, keepdim=True)) / n
     mean, var = mean.to(x.dtype), var.to(x.dtype)
-    inv = torch.rsqrt((var + torch.tensor(eps, dtype=x.dtype, device=x.device)).float())
+    inv = torch.rsqrt((var + torch.full((), eps, dtype=x.dtype, device=x.device)).float())
     xn = (x - mean) * inv.to(x.dtype)
     return xn * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
 

@@ -90,7 +90,6 @@ def tree_gather_scatter(x: torch.Tensor, topo: TreeTopo, aggr: str = "mean") -> 
     sizes, bases = topo.sizes, topo.bases
     f_dim = x.shape[-1]
     acc = _acc_dtype(x.dtype)
-    neg = torch.tensor(float("-inf"), dtype=acc, device=x.device)
     sums, counts = [], []
     off = 0
     for d, f in enumerate(topo.fanouts):
@@ -99,7 +98,7 @@ def tree_gather_scatter(x: torch.Tensor, topo: TreeTopo, aggr: str = "mean") -> 
         mm = topo.edge_mask[off:off + n_child].reshape(sizes[d], f)
         off += n_child
         if aggr == "max":
-            sums.append(torch.where(mm[..., None], cb, neg).amax(dim=1))
+            sums.append(torch.where(mm[..., None], cb, float("-inf")).amax(dim=1))
         else:
             sums.append((cb * mm.to(acc)[..., None]).sum(dim=1))
         counts.append(mm.sum(dim=1).float())

@@ -6,14 +6,24 @@ Port of these parts of ``noise_gnn_tpu/train/steps.py``: ``GraphData``,
 ``make_ctp_epoch``, ``_te_step_math``, ``make_te_epoch``,
 ``_h_step_math``, ``make_h_epoch``, ``_contrast_step_math``,
 ``make_contrast_train_epoch`` and ``make_eval_fn``. Where JAX scans a jitted step
-over the epoch's seed batches, the port runs a Python loop of eager steps:
+over the epoch's seed batches, the port runs a Python loop of steps:
 sample the tree on the device, gather its features, forward, loss,
 backward, optimizer step. Per-step metrics are added into one device
 tensor, so an epoch syncs with the host once, when the caller reads them.
+The co-teaching step on a CUDA device in one process (no ``mesh``) is a
+CUDA graph (``train/step_graph.py``): its shapes are static, it never
+waits for the host, and it draws from its one generator, so after two
+eager steps one capture replays it, with the same kernels in the same
+order and the same draws, and the host issues one launch a step instead
+of some hundreds; a state pair keeps its graph while it lives, and a call
+of other shapes captures anew. Every other step (the CPU, a mesh's
+collectives, the TE, CTP, H, contrast and baseline steps) runs eagerly.
 The co-teaching and TE steps and their phases (sample, forward, rewire,
 backward, optimizer) are spans of ``utils/profiling.py::trace`` named
 ``ngt.*``, which record only while a profiler session runs (a gat_ns
-net's tree attention is one more, ``ngt.attn``, inside the forward).
+net's tree attention is one more, ``ngt.attn``, inside the forward); a
+replayed step records them as events inside its graph, and the counter
+``ct_graphed`` says which co-teaching steps were replays.
 
 Every epoch also runs data-parallel, given a ``mesh`` (``parallel/mesh.py``;
 the JAX package's ``epoch_jit(mesh=...)``): each rank samples and forwards
@@ -71,7 +81,8 @@ from ..ops.sampler import sample_khop_tree
 from ..ops.scatter import fast_take
 from ..ops.tree_agg import TreeTopo
 from ..parallel.mesh import all_reduce_sum_, batch_sharding, gather_flat, gather_rows
-from ..utils.profiling import trace
+from ..utils.profiling import count, counting, trace
+from .step_graph import GraphCache
 
 
 @dataclass
@@ -238,6 +249,29 @@ def ct_metrics(out, o1, o2, yb, yt, cb, b_mask) -> torch.Tensor:
     ])
 
 
+_CT_GRAPHS = GraphCache()
+
+
+def _hyper(opt: torch.optim.Optimizer) -> tuple:
+    """The optimizer's settings that a capture bakes in."""
+    return tuple(tuple((k, v) for k, v in sorted(g.items()) if k not in ("params", "capturable"))
+                 for g in opt.param_groups)
+
+
+def ct_graph(spec: nets.NetSpec, s1: TrainState, s2: TrainState, data: GraphData, b_seeds,
+             b_mask, gen, fanouts, algo, co_lambda, exact_leaf, mesh):
+    """The graph that runs this co-teaching step: one per live state pair,
+    for a step on a CUDA device with no ``mesh``, keyed by what its
+    capture bakes in (the shapes, the data, the generator, the settings);
+    None where the step runs eagerly."""
+    if mesh is not None or not data.x.is_cuda:
+        return None
+    sig = (spec, id(data), id(gen), tuple(fanouts), algo, co_lambda, exact_leaf,
+           tuple(b_seeds.shape), b_seeds.dtype, tuple(b_mask.shape), _hyper(s1.opt),
+           _hyper(s2.opt))
+    return _CT_GRAPHS.get((s1.opt, s2.opt), sig, keep=(data, gen))
+
+
 def ct_step(spec: nets.NetSpec, s1: TrainState, s2: TrainState, data: GraphData,
             b_seeds: torch.Tensor, b_mask: torch.Tensor, gen: torch.Generator, fr,
             fanouts: tuple[int, ...], algo: str = "coteaching", co_lambda: float = 0.1,
@@ -245,7 +279,26 @@ def ct_step(spec: nets.NetSpec, s1: TrainState, s2: TrainState, data: GraphData,
     """One co-teaching step on the batch ``b_seeds``/``b_mask`` [B]: updates
     both states in place and returns its :data:`CT_METRICS` (device). With
     a ``mesh``, this rank samples and forwards its block of the seeds and
-    the loss sees the gathered whole batch."""
+    the loss sees the gathered whole batch. On a CUDA device without one,
+    a replay of the state pair's graph (:func:`ct_graph`) after its first
+    two steps."""
+    graph = ct_graph(spec, s1, s2, data, b_seeds, b_mask, gen, fanouts, algo, co_lambda,
+                     exact_leaf, mesh)
+    if graph is None:
+        met = _ct_step(spec, s1, s2, data, b_seeds, b_mask, gen, fr, fanouts, algo, co_lambda,
+                       exact_leaf, mesh)
+    else:
+        fr = torch.as_tensor(fr, dtype=torch.float32, device=b_seeds.device)
+        met = graph(lambda seeds, mask, f: _ct_step(spec, s1, s2, data, seeds, mask, gen, f,
+                                                    fanouts, algo, co_lambda, exact_leaf),
+                    (b_seeds, b_mask, fr), gen, (s1.opt, s2.opt))
+    if counting():
+        count("ct_graphed", torch.tensor(graph is not None and graph.graph is not None))
+    return met
+
+
+def _ct_step(spec, s1, s2, data, b_seeds, b_mask, gen, fr, fanouts, algo, co_lambda,
+             exact_leaf, mesh=None) -> torch.Tensor:
     with trace("ngt.ct_step"):
         ls, lm = _local(mesh, b_seeds, b_mask)
         with trace("ngt.sample"):

@@ -17,6 +17,10 @@ themselves:
                          mask that costs work to build);
 * ``spans`` / ``counts``
   / ``reset``          — the span table and the counters: read, and emptied;
+* ``capturing`` /
+  ``replay``           — the spans and counters of work captured in a CUDA
+                         graph, recorded at every replay that runs under a
+                         profiler;
 * ``start_profile`` /
   ``stop_profile``     — one ``torch.profiler`` session, written as a Chrome
                          trace into a directory.
@@ -27,6 +31,13 @@ the work it covers: CUDA events on the current stream once CUDA is in use
 in the process, the host's clock otherwise. Event pairs are resolved when
 they have completed (``Event.query``, no sync) and the rest when the table
 is read. Spans nest within one thread.
+
+Inside ``capturing()`` (a CUDA graph's capture), whether or not a profiler
+runs, a span is two external timing events, which the graph records on
+every replay, and a counter keeps its mask, which every replay refills.
+``replay`` then adds the span rows and the counters of each replay that
+runs while a profiler does, after the previous replay's events have been
+read, since this one records over them.
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ class _Table:
         self.open: list[str] = []  # the names of the open spans, innermost last
         self.events: list = []  # finished CUDA events, reused
         self.counts: dict[str, list] = {}  # name -> [device count, slots]
+        self.capture: Capture | None = None  # the CUDA graph being captured
 
     def mark(self, cuda: bool):
         """A span's edge: a CUDA event on the current stream, or the host's
@@ -69,14 +81,14 @@ class _Table:
 
     def close(self, name: str, start, end) -> None:
         self.open.pop()
-        self.pending.append((name, self.open[-1] if self.open else None, start, end))
+        self.pending.append((name, self.open[-1] if self.open else None, start, end, True))
         self.resolve(wait=False)
 
     def resolve(self, wait: bool) -> None:
         """Add the finished spans to the rows, oldest first: their ends were
         marked in this order on one clock, so they complete in it."""
         while self.pending:
-            name, parent, start, end = self.pending[0]
+            name, parent, start, end, pooled = self.pending[0]
             if isinstance(end, float):
                 ms = (end - start) * 1e3
             else:
@@ -85,7 +97,8 @@ class _Table:
                         return
                     end.synchronize()
                 ms = start.elapsed_time(end)
-                self.events += (start, end)
+                if pooled:
+                    self.events += (start, end)
             self.pending.popleft()
             row = self.rows.setdefault(name, [0, 0.0, 0.0])
             row[0] += 1
@@ -96,6 +109,41 @@ class _Table:
 
 
 _table = _Table()
+
+
+class Capture:
+    """The spans and counters met while a CUDA graph was captured: each
+    span as (name, parent, start, end) with external timing events, in the
+    order the spans closed, and each counter as (name, mask)."""
+
+    def __init__(self):
+        self.spans: list[tuple] = []
+        self.counts: list[tuple[str, torch.Tensor]] = []
+        self.open: list[str] = []
+
+
+class _CapturedSpan:
+    __slots__ = ("name", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def _mark(self):
+        ev = torch.cuda.Event(enable_timing=True, external=True)
+        ev.record()
+        return ev
+
+    def __enter__(self):
+        _table.capture.open.append(self.name)
+        self.start = self._mark()
+        return self
+
+    def __exit__(self, *exc):
+        cap = _table.capture
+        end = self._mark()
+        cap.open.pop()
+        cap.spans.append((self.name, cap.open[-1] if cap.open else None, self.start, end))
+        return False
 
 
 class _Span:
@@ -121,19 +169,27 @@ class _Span:
 def trace(name: str):
     """A named span of the program: the shared null context when no
     profiler session runs; within one, a ``record_function`` range and a
-    row of :func:`spans`."""
+    row of :func:`spans`; inside :func:`capturing`, two events that the
+    graph records."""
+    if _table.capture is not None:
+        return _CapturedSpan(name)
     return _Span(name) if _profiling() else _OFF
 
 
 def counting() -> bool:
-    """Whether :func:`count` counts: a profiler session runs."""
-    return _profiling()
+    """Whether :func:`count` counts: a profiler session runs, or a graph
+    is being captured (whose replays may run under one)."""
+    return _table.capture is not None or _profiling()
 
 
 def count(name: str, mask: torch.Tensor) -> None:
     """While a profiler session runs, add the True entries of ``mask`` to
     counter ``name`` (on the mask's device, no sync) and its size to the
-    counter's slots."""
+    counter's slots. Inside :func:`capturing` the mask is kept for the
+    replays."""
+    if _table.capture is not None:
+        _table.capture.counts.append((name, mask))
+        return
     if not _profiling():
         return
     c = _table.counts.get(name)
@@ -161,6 +217,36 @@ def reset() -> None:
     _table.rows.clear()
     _table.pending.clear()
     _table.counts.clear()
+
+
+@contextlib.contextmanager
+def capturing():
+    """Record the spans and counters of the work inside as a
+    :class:`Capture`, for the CUDA graph captured there."""
+    if _table.capture is not None:
+        raise RuntimeError("a capture is already being recorded")
+    _table.capture = cap = Capture()
+    try:
+        yield cap
+    finally:
+        _table.capture = None
+
+
+def replay(graph, cap: Capture) -> None:
+    """``graph.replay()``; while a profiler runs, the spans and counters
+    ``cap`` recorded at its capture are added for this replay, the
+    outermost spans as children of the innermost open one."""
+    if not _profiling():
+        graph.replay()
+        return
+    _table.resolve(wait=True)  # the previous replay's events, before this one records over them
+    graph.replay()
+    parent = _table.open[-1] if _table.open else None
+    for name, par, start, end in cap.spans:
+        _table.pending.append((name, par if par is not None else parent, start, end, False))
+    _table.resolve(wait=False)
+    for name, mask in cap.counts:
+        count(name, mask)
 
 
 def start_profile(log_dir: str) -> None:

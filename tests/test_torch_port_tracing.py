@@ -8,7 +8,10 @@ Under ``torch.profiler`` the spans lie in the kineto trace, nested in time
 as in the code, and the span table counts each step's phases: a TE step
 with the rewired contrast runs one ``ngt.rewire`` and two ``ngt.forward``,
 a plain one no rewire. The sampler's ``sample_fill`` is the mean of the
-tree's child masks."""
+tree's child masks. Inside ``capturing`` (a CUDA graph's capture) spans
+become events the graph records and counters keep their masks; each
+replay under a profiler adds them, with stand-in events here, and the CPU's
+eager co-teaching steps count 0 for ``ct_graphed``."""
 
 import contextlib
 
@@ -204,3 +207,84 @@ def test_reset_empties_the_table(world):
     assert profiling.spans() and profiling.counts()
     profiling.reset()
     assert profiling.spans() == {} and profiling.counts() == {}
+
+
+class _Event:
+    """A stand-in CUDA event: a time (ms), read once the work it marks is
+    done; ``log`` holds that state for every event of one replay."""
+
+    def __init__(self, ms: float, log: list):
+        self.ms, self.log = ms, log
+
+    def record(self):
+        self.log.append("record")
+
+    def query(self):
+        return not self.log or self.log[-1] != "record"
+
+    def synchronize(self):
+        if not self.query():
+            self.log.append("wait")
+
+    def elapsed_time(self, end):
+        assert self.query() and end.query()
+        return end.ms - self.ms
+
+
+def test_capture_keeps_spans_and_masks(monkeypatch):
+    """Inside ``capturing`` a span is two events that the graph records,
+    nested as in the code, and a counter keeps its mask; nothing reaches
+    the table, profiler or not."""
+    log = []
+    monkeypatch.setattr(torch.cuda, "Event", lambda **kw: _Event(0.0, log))
+    mask = torch.tensor([True, False])
+    with _cpu_profile(), profiling.capturing() as cap:
+        assert profiling.counting()
+        with profiling.trace("ngt.ct_step"):
+            with profiling.trace("ngt.sample"):
+                profiling.count("sample_fill", mask)
+    assert [(n, p) for n, p, _, _ in cap.spans] == [("ngt.sample", "ngt.ct_step"),
+                                                   ("ngt.ct_step", None)]
+    assert cap.counts == [("sample_fill", mask)] and not profiling.counting()
+    assert profiling.spans() == {} and profiling.counts() == {}
+
+
+def test_replay_adds_the_captured_rows():
+    """Each replay under a profiler adds the capture's spans (the
+    outermost under the open span) and counters, after reading the
+    previous replay's events; the graph's events never enter the pool.
+    With no profiler a replay adds nothing."""
+    log = []
+    ev = {t: _Event(t, log) for t in (0.0, 1.0, 3.0, 5.0)}
+    cap = profiling.Capture()
+    cap.spans = [("ngt.sample", "ngt.ct_step", ev[1.0], ev[3.0]),
+                 ("ngt.ct_step", None, ev[0.0], ev[5.0])]
+    cap.counts = [("sample_fill", torch.tensor([True, False, True]))]
+
+    class Graph:
+        def replay(self):
+            log.append("replay")
+            ev[0.0].record()
+
+    profiling.replay(Graph(), cap)
+    assert profiling.spans() == {} and log == ["replay", "record"]
+    log.clear()
+    with _cpu_profile():
+        with profiling.trace("outer"):
+            profiling.replay(Graph(), cap)
+            profiling.replay(Graph(), cap)
+    assert log == ["replay", "record", "wait", "replay", "record"]
+    tab = profiling.spans()
+    assert tab["ngt.ct_step"] == {"calls": 2, "ms": 10.0, "self_ms": 6.0}
+    assert tab["ngt.sample"] == {"calls": 2, "ms": 4.0, "self_ms": 4.0}
+    assert tab["outer"]["self_ms"] == pytest.approx(tab["outer"]["ms"] - 10.0)
+    assert profiling.counts() == {"sample_fill": {"hits": 4, "slots": 6}}
+    assert not profiling._table.events
+
+
+def test_eager_ct_steps_count_as_not_graphed(world):
+    """On the CPU every co-teaching step runs eagerly: ``ct_graphed`` 0 of
+    one slot a step."""
+    with _cpu_profile():
+        _ct(world)
+    assert profiling.counts()["ct_graphed"] == {"hits": 0, "slots": STEPS}
